@@ -5,17 +5,31 @@
 
 Phases, each fatal on failure:
  1. the card's name and power limit, torch and CUDA versions; TF32 off;
- 2. build every kernel from ``ser_tpu_torch/csrc`` with nvcc;
- 3. each kernel against its plain PyTorch version on the card, at the
-    shapes the main path gives it;
- 4. the main path: a ``Predictor`` with seeded full-width MARN1_onlysp
+ 2. build every kernel from ``ser_tpu_torch/csrc`` with nvcc, one process
+    per source, all started together;
+ 3. the recurrence kernel against its plain PyTorch version on the card;
+ 3b. the MFCC kernel against its plain version at the IEMOCAP eval wav
+    shape, at ``bench.py``'s [1606, 4000], at 1 s utterances and at all-zero
+    rows;
+ 4. the feature path: a ``Predictor`` with seeded full-width MARN1_onlysp
     weights answers three requests (the IEMOCAP eval shape, one dialogue,
     the reference train shape [110, 80]); each must launch the recurrence
     kernel once and match the same model on the CPU, which runs the plain
     path;
- 5. CUDA-event timings at the IEMOCAP eval shape: the kernel, its plain
-    version, the whole ``predict``;
- 6. a ``torch.profiler`` breakdown of a request's device time by kernel.
+ 4b. the raw-audio path: ``Predictor(audio_frontend="mfcc")`` answers a
+    collated request with waveforms at the IEMOCAP eval shape [82, 31],
+    4000 samples bucketed to 4096; it must launch the MFCC kernel and the
+    recurrence kernel once each and match the CPU;
+ 4c. the entry point: ``python -m ser_tpu_torch.predict --synthetic
+    --audio_frontend mfcc`` with a seeded checkpoint on the card, against a
+    ``--device cpu`` run on the same pickles;
+ 5. CUDA-event timings: the recurrence kernel, its plain version and a
+    whole feature request at the IEMOCAP eval shape; the MFCC kernel, its
+    plain version, the function's bound (FFT work) and the operations of
+    the kernel's dense-product algorithm at the eval wav shape; front-end
+    utterances/s at ``bench.py``'s shape; a whole wav request;
+ 6. ``torch.profiler`` breakdowns of a feature request and of a wav request
+    by kernel and copy.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -23,16 +37,22 @@ beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import csv
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12   # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
+MFCC_RTOL, MFCC_ATOL = 1e-5, 2e-4  # kernel vs plain: summation order only
+WAV_T, WAV_BUCKET_T = 4000, 4096  # bench.py's utterance, collate's bucket
+PREDICT_SEED = 111  # the predict CLI's default --seed, which --synthetic uses
 
 
 def check(cond, msg):
@@ -91,6 +111,70 @@ def recurrence_bound(seqs, consts, out):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def mfcc_bound(x, consts, out, cfg):
+    """Least time for the MFCC function, whatever the algorithm: the
+    waveform, the mel filterbank and the DCT matrix read once, the
+    coefficients written once (an FFT reads no DFT matrix); pre-emphasis 2
+    flops a sample, and per frame the window win, a real FFT of n_fft
+    2.5*n_fft*log2(n_fft) (FFTW's count), the power 3*nbins, 2 per nonzero
+    of the filterbank, log(. + eps) 2*n_mels and a fast DCT
+    2.5*n_mels*log2(n_mels). Returns ``(ms, bound_by, dense_ms)`` with
+    ``dense_ms`` the operations time of the kernel's own algorithm, which
+    computes the window+DFT, mel and DCT steps as dense products."""
+    N, T = x.shape
+    frames = N * cfg.n_frames(T)
+    nbins = cfg.n_fft // 2 + 1
+    mel, dct = consts[2], consts[3]
+    per_frame = (cfg.win_length + 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
+                 + 3 * nbins + 2 * int((mel != 0).sum()) + 2 * cfg.n_mels
+                 + 2.5 * cfg.n_mels * math.log2(cfg.n_mels))
+    dense = (4 * cfg.win_length * nbins + 3 * nbins + 2 * nbins * cfg.n_mels
+             + 2 * cfg.n_mels + 2 * cfg.n_mels * cfg.n_mfcc)
+    flops = 2 * N * T + frames * per_frame
+    nbytes = sum(t.numel() * t.element_size() for t in (x, mel, dct, out))
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    dense_ms = (2 * N * T + frames * dense) / F32_PEAK * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            dense_ms)
+
+
+def wav_request(np, batch, seed):
+    """``batch`` as ``data.collate`` pads it with raw audio: WAV_T seeded
+    samples for every real utterance, zeros in every padded slot, the
+    sample axis bucketed to WAV_BUCKET_T, ``wav_len`` per dialogue."""
+    L, B = batch["qmask"].shape[:2]
+    rng = np.random.default_rng(seed)
+    wav = np.zeros((L, B, WAV_BUCKET_T), np.float32)
+    wav[:, :, :WAV_T] = (0.5 * rng.standard_normal((L, B, WAV_T))).astype(
+        np.float32) * batch["umask"].T[:, :, None]
+    return dict(batch, wav=wav, wav_len=np.full(B, WAV_T, np.int32))
+
+
+def read_res_csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return ([int(r["preds"]) for r in rows], [int(r["labels"]) for r in rows],
+            [float(r["masks"]) for r in rows])
+
+
+def device_profile(torch, fn, n):
+    """Device events of ``n`` calls of ``fn`` under ``torch.profiler``:
+    ``(wall ms, busy ms, events)`` with events the kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()  # kernels and copies, not host ops
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return wall_ms, busy_ms, events
+
+
 def main() -> int:
     import torch
 
@@ -104,14 +188,23 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from ser_tpu_torch.data.synthetic import iemocap_eval_batch, synthetic_batch
+    from ser_tpu_torch.compat.from_jax import to_jax_params
+    from ser_tpu_torch.data.frontend import MFCCFrontend
+    from ser_tpu_torch.data.synthetic import (generate_iemocap_pickles,
+                                              iemocap_eval_batch,
+                                              synthetic_batch)
     from ser_tpu_torch.device import disable_tf32
     from ser_tpu_torch.models.registry import get_model_spec
     from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels import mfcc as mfcc_kernel
     from ser_tpu_torch.ops.kernels.build import build
     from ser_tpu_torch.ops.kernels.lsthm import (
         NAME, lsthm_onlysp_recurrence_bidir, lsthm_onlysp_recurrence_bidir_ref)
+    from ser_tpu_torch.ops.mfcc import mfcc, mfcc_ref
     from ser_tpu_torch.serving import Predictor
+    from ser_tpu_torch.train.metrics import weighted_accuracy
+
+    MFCC = mfcc_kernel.NAME
 
     # 1. the card
     card = subprocess.run(
@@ -125,14 +218,15 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = build([NAME])
-    print(f"[build] {NAME}.cu in {time.perf_counter() - t0:.1f} s")
-    for line in logs.get(NAME, "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build]   {line.strip()}")
+    logs = build([NAME, MFCC])
+    print(f"[build] {NAME}.cu, {MFCC}.cu in {time.perf_counter() - t0:.1f} s")
+    for name in (NAME, MFCC):
+        for line in logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build]   {name}: {line.strip()}")
 
-    # 3. kernel against its plain version, T = 110, atol 1e-4 (110 serial
-    #    steps sum in another order than the plain version's matmuls)
+    # 3. recurrence kernel against its plain version, T = 110, atol 1e-4
+    #    (110 serial steps sum in another order than the plain version's matmuls)
     max_err = 0.0
     for B in (1, 31, 80):
         seqs, consts = recurrence_inputs(np, torch, 110, B, seed=B, dev=dev)
@@ -145,9 +239,39 @@ def main() -> int:
         check(torch.isfinite(got).all().item(), f"non-finite kernel output B={B}")
         check(err <= 1e-4, f"kernel disagrees with plain version at B={B}")
 
-    # 4. the main path: three requests through the Predictor
-    spec = get_model_spec("MARN1_onlysp")
+    # 3b. MFCC kernel against its plain version, |err| <= MFCC_ATOL +
+    #     MFCC_RTOL*|plain|: the same f32 products summed in another order
     eval_batch, n_utts = iemocap_eval_batch(seed=0)
+    wav_batch = wav_request(np, eval_batch, seed=5)
+    L, B = eval_batch["qmask"].shape[:2]
+    wav_rows = torch.from_numpy(wav_batch["wav"].reshape(L * B, -1)).to(dev)
+    rng = np.random.default_rng(3)
+    bench_wav = torch.from_numpy(
+        rng.standard_normal((n_utts, WAV_T)).astype(np.float32)).to(dev)
+    cfg = MFCCFrontend().cfg  # the path's 64 mels, 50 coefficients
+    mfcc_err = 0.0
+    for name, x in (
+            ("iemocap_eval_wav", wav_rows),
+            ("bench_1606x4000", bench_wav),
+            ("one_second", torch.from_numpy(rng.standard_normal(
+                (4, 16000)).astype(np.float32)).to(dev)),
+            ("all_zero_rows", torch.zeros(64, WAV_BUCKET_T, device=dev))):
+        got = mfcc(x, cfg)
+        torch.cuda.synchronize()
+        want = mfcc_ref(x, cfg)
+        err = (got - want).abs()
+        worst = (err / (MFCC_ATOL + MFCC_RTOL * want.abs())).max().item()
+        mfcc_err = max(mfcc_err, err.max().item())
+        print(f"[kernel] {MFCC} {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
+              f"max|kernel-plain| = {err.max().item():.3e}, "
+              f"{worst:.3f} of the tolerance")
+        check(torch.isfinite(got).all().item(), f"non-finite MFCC output, {name}")
+        check(got.shape == (x.shape[0], cfg.n_frames(x.shape[1]), cfg.n_mfcc),
+              f"MFCC output shape, {name}")
+        check(worst <= 1.0, f"MFCC kernel disagrees with plain version, {name}")
+
+    # 4. the feature path: three requests through the Predictor
+    spec = get_model_spec("MARN1_onlysp")
     n0 = int(eval_batch["umask"][0].sum())  # dialogue 0 alone, unpadded
     one = {k: (v[:1, :n0] if k in ("umask", "label") else v[:n0, :1])
            for k, v in eval_batch.items() if k != "vid"}
@@ -156,8 +280,8 @@ def main() -> int:
                 ("train_shape", train_batch)]
 
     gpu = Predictor(seed=0, device="cuda")
-    cpu = Predictor(state_dict={k: v.cpu() for k, v in
-                                gpu.model.state_dict().items()}, device="cpu")
+    weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    cpu = Predictor(state_dict=weights, device="cpu")
     reset_launches()
     per_request = []
     for name, batch in requests:
@@ -170,19 +294,83 @@ def main() -> int:
     main_launches = LAUNCHES[NAME]
     check(main_launches > 0, f"{NAME} was never launched on the main path")
     for name, x, qmask, umask, logp, launches in per_request:
-        L, B = x.shape[:2]
+        L_, B_ = x.shape[:2]
         ref = cpu.predict(x, qmask, umask)[0]
         err = (logp - ref).abs().max().item()
         ok = torch.allclose(logp, ref, rtol=1e-3, atol=1e-4)
-        print(f"[predict] {name}: L={L} B={B} logp {tuple(logp.shape)} "
+        print(f"[predict] {name}: L={L_} B={B_} logp {tuple(logp.shape)} "
               f"launches={launches} max|gpu-cpu|={err:.3e}")
         check(torch.isfinite(logp).all().item(), f"non-finite logp for {name}")
-        check(tuple(logp.shape) == (B * L, 6), f"logp shape for {name}")
+        check(tuple(logp.shape) == (B_ * L_, 6), f"logp shape for {name}")
         check(launches == 1, f"{name} launched {NAME} {launches} times")
         check(ok, f"{name}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
     check(gpu.n_requests == 3, "the predictor did not count three requests")
 
-    # 5. timings at the IEMOCAP eval shape
+    # 4b. the raw-audio path: one collated wav request, front end on the card
+    gpu_wav = Predictor(state_dict=weights, device="cuda", audio_frontend="mfcc")
+    cpu_wav = Predictor(state_dict=weights, device="cpu", audio_frontend="mfcc")
+    reset_launches()
+    logp, _ = gpu_wav.predict_batch(wav_batch)
+    torch.cuda.synchronize()
+    wav_launches = dict(LAUNCHES)
+    logp = logp.cpu()
+    ref = cpu_wav.predict_batch(wav_batch)[0]
+    err = (logp - ref).abs().max().item()
+    print(f"[predict] iemocap_eval_wav: L={L} B={B} T={WAV_BUCKET_T} "
+          f"logp {tuple(logp.shape)} launches={wav_launches} "
+          f"max|gpu-cpu|={err:.3e}")
+    check(torch.isfinite(logp).all().item(), "non-finite logp for the wav request")
+    check(wav_launches.get(MFCC, 0) == 1 and wav_launches.get(NAME, 0) == 1,
+          f"the wav request launched {wav_launches}, want {MFCC} and {NAME} once")
+    check(torch.allclose(logp, ref, rtol=1e-3, atol=1e-4),
+          "wav request: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+
+    # 4c. the entry point on the card and on the CPU, the same pickles
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "marn1_onlysp_seed0.npz"
+        np.savez(ckpt, **to_jax_params(weights))
+        feature_path = generate_iemocap_pickles(
+            str(tmp / "pickles"), seed=PREDICT_SEED, with_wav=True)
+        cli = [sys.executable, "-m", "ser_tpu_torch.predict",
+               "--audio_frontend", "mfcc", "--initial_model", str(ckpt)]
+        runs = {
+            "cuda": cli + ["--synthetic", "--res_csv", str(tmp / "cuda.csv")],
+            "cpu": cli + ["--feature_path", feature_path, "--device", "cpu",
+                          "--res_csv", str(tmp / "cpu.csv")],
+        }
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, c in runs.items()}
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        print(f"[cli] both runs in {time.perf_counter() - t0:.1f} s")
+        reports = {}
+        for k, (out, errs) in outs.items():
+            check(procs[k].returncode == 0,
+                  f"predict CLI ({k}) exited {procs[k].returncode}:\n{errs[-3000:]}")
+            check("is not in the model" not in out and "Wrong parameter" not in out,
+                  f"predict CLI ({k}) skipped checkpoint names:\n{out[:2000]}")
+            reports[k] = json.loads(out[out.index("{"):])
+        preds, labels, masks = read_res_csv(tmp / "cuda.csv")
+        cpu_preds, cpu_labels, cpu_masks = read_res_csv(tmp / "cpu.csv")
+    rep = reports["cuda"]
+    print(f"[cli] cuda: {json.dumps(rep)}")
+    print(f"[cli] cpu:  {json.dumps(reports['cpu'])}")
+    valid = [i for i, m in enumerate(masks) if m > 0]
+    flips = sum(preds[i] != cpu_preds[i] for i in valid)
+    print(f"[cli] predictions differ on {flips} of {len(valid)} valid utterances")
+    check(labels == cpu_labels and masks == cpu_masks,
+          "the card and CPU runs read different pickles")
+    check(rep["n_examples"] == 31 and len(valid) > 0, "predict CLI test split")
+    check(all(math.isfinite(rep[k]) for k in ("weighted_accuracy", "weighted_f1")),
+          "non-finite CLI metrics")
+    check(rep["weighted_accuracy"] == weighted_accuracy(labels, preds, masks),
+          "CLI accuracy does not match its res.csv")
+    check(flips <= 0.001 * len(valid), "card and CPU predictions differ on "
+          "more than 0.1% of the valid utterances")
+
+    # 5. timings
     x, qmask, umask = spec.make_inputs(eval_batch)
     xt, qt, ut = (torch.as_tensor(a, device=dev) for a in (x, qmask, umask))
     with torch.inference_mode():
@@ -201,33 +389,51 @@ def main() -> int:
         print(f"[time] {card} | kernel T=82 B={B_sweep}: {ms:.4f} ms "
               f"({ms / 82 * 1e3:.2f} us/step)")
     bound_ms, bound_by = recurrence_bound(seqs, consts, out)
-    T, _, B = seqs[0].shape[:3]
-    print(f"[time] {card} | recurrence T={T} B={B}: kernel {kernel_ms:.4f} ms, "
+    T, _, B_rec = seqs[0].shape[:3]
+    print(f"[time] {card} | recurrence T={T} B={B_rec}: kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     print(f"[time] {card} | predict {n_utts} utterances: {predict_ms:.4f} ms, "
           f"{n_utts / predict_ms * 1e3:.1f} utterances/s")
 
-    # 6. where the time of a request goes: device time by kernel, and the
-    #    device's busy share of the wall time, over five requests
-    from torch.profiler import ProfilerActivity, profile
+    mfcc_out = mfcc(wav_rows, cfg)
+    mfcc_ms = cuda_ms(torch, lambda: mfcc(wav_rows, cfg))
+    mfcc_plain_ms = cuda_ms(torch, lambda: mfcc_ref(wav_rows, cfg))
+    mfcc_bound_ms, mfcc_bound_by, dense_ms = mfcc_bound(
+        wav_rows, cfg.tensors(dev), mfcc_out, cfg)
+    print(f"[time] {card} | {MFCC} {tuple(wav_rows.shape)}: kernel {mfcc_ms:.4f} ms, "
+          f"plain {mfcc_plain_ms:.4f} ms, bound {mfcc_bound_ms:.4f} ms "
+          f"({mfcc_bound_by}), {100 * mfcc_bound_ms / mfcc_ms:.1f}% of the bound; "
+          f"the dense-product algorithm's own operations {dense_ms:.4f} ms")
+    bench_kernel_ms = cuda_ms(torch, lambda: mfcc(bench_wav, cfg))
+    frontend_ms = cuda_ms(torch, lambda: gpu_wav.frontend(bench_wav))
+    print(f"[time] {card} | front end {tuple(bench_wav.shape)}: kernel "
+          f"{bench_kernel_ms:.4f} ms, with pooling {frontend_ms:.4f} ms, "
+          f"{n_utts / frontend_ms * 1e3:.1f} utterances/s")
+    wav_predict_ms = cuda_ms(torch, lambda: gpu_wav.predict_batch(wav_batch),
+                             warmup=2, iters=10)
+    print(f"[time] {card} | wav request {n_utts} utterances [{L}, {B}, "
+          f"{WAV_BUCKET_T}]: {wav_predict_ms:.4f} ms, "
+          f"{n_utts / wav_predict_ms * 1e3:.1f} utterances/s")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            gpu.predict(x, qmask, umask)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()  # kernels and copies, not host ops
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("Activity Buffer")]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[profile] {card} | 5 requests: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:10]:
-        if e.self_device_time_total > 0:
-            print(f"[profile]   {e.self_device_time_total / 5e3:9.4f} ms/request "
-                  f"x{e.count // 5:<4d} {e.key[:90]}")
+    # 6. where the time of a request goes: device time by kernel and copy,
+    #    and the device's busy share of the wall time
+    for label, fn, n in (("feature request", lambda: gpu.predict(x, qmask, umask), 5),
+                         ("wav request", lambda: gpu_wav.predict_batch(wav_batch), 3)):
+        wall_ms, busy_ms, events = device_profile(torch, fn, n)
+        print(f"[profile] {card} | {label}, {n} requests: wall {wall_ms:.3f} ms, "
+              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+        split = {"HtoD copy": 0.0, MFCC: 0.0, NAME: 0.0, "rest": 0.0}
+        for e in events:
+            key = ("HtoD copy" if "HtoD" in e.key else MFCC if "mfcc_kernel" in e.key
+                   else NAME if "lsthm_onlysp" in e.key else "rest")
+            split[key] += e.self_device_time_total / n / 1e3
+        print("[profile]   ms/request: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
+        for e in sorted(events, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:10]:
+            if e.self_device_time_total > 0:
+                print(f"[profile]   {e.self_device_time_total / n / 1e3:9.4f} "
+                      f"ms/request x{e.count // n:<4d} {e.key[:90]}")
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
@@ -235,7 +441,13 @@ def main() -> int:
         "replaces": "ser_tpu/ops/pallas/lsthm.py:296",
         "launches": main_launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": MFCC, "route": "cuda",
+        "source": "ser_tpu_torch/csrc/mfcc.cu",
+        "replaces": "ser_tpu/ops/pallas/mfcc.py:152",
+        "launches": wav_launches[MFCC], "max_abs_err": mfcc_err,
+        "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound_ms,
+        "bound_by": mfcc_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@
 torch keys the port's modules use. Dense kernels ``[in, out]`` are
 transposed to ``[out, in]``; the per-step rank-1 attention vectors ``[D]``
 become ``[1, D]``. This is the port's own copy of the mapping that the JAX
-package's torch converter defines for MARN1_onlysp.
+package's torch converter defines for MARN1_onlysp. ``to_jax_params`` is its
+inverse, which writes a port state dict as the JAX package's checkpoint
+names.
 """
 
 from __future__ import annotations
@@ -53,4 +55,45 @@ def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     for name, value in flat.items():
         key, v = _convert(name, np.asarray(value, dtype=np.float32))
         out[key] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+_KEY_LSTHM = re.compile(r"(marn_cell_[fb])\.(lsthm_[la])\.([WUVS])\.(weight|bias)")
+_KEY_RNN = re.compile(r"(marn_cell_[fb])\.(gru_s|lstm_q0|lstm_q1|lstm_s)\."
+                      r"(weight|bias)_(ih|hh)")
+_KEY_RANK1 = re.compile(r"(marn_cell_[fb])\.(crossatt_l2a|crossatt_a2l)\.(W[qkv])")
+_KEY_SEQ_ATT = re.compile(r"(crossatt_\w+)\.(W[qkv])")
+
+
+def _to_jax(key: str, v: np.ndarray):
+    """``(flat JAX name, value in JAX layout)`` for one port key."""
+    kind = {"weight": "kernel", "bias": "bias"}
+    if m := _KEY_LSTHM.fullmatch(key):
+        cell, mod, mat, leaf = m.groups()
+        return f"{cell}/{mod}_{mat}_{kind[leaf]}", v.T if leaf == "weight" else v
+    if m := _KEY_RNN.fullmatch(key):
+        cell, rnn, leaf, side = m.groups()
+        return f"{cell}/{rnn}_{side}_{kind[leaf]}", v.T if leaf == "weight" else v
+    if m := _KEY_RANK1.fullmatch(key):
+        return f"{m[1]}/{m[2]}_{m[3]}", v.reshape(-1)
+    if m := _KEY_SEQ_ATT.fullmatch(key):
+        return f"{m[1]}/{m[2]}", v
+    if "." not in key:  # the fusion scalars w, v, v1, v2
+        return key, v
+    head, leaf = key.rsplit(".", 1)
+    for jax_part, torch_part in _MODULE.items():
+        head = head.replace(torch_part, jax_part)
+    head = head.replace(".", "/")
+    if leaf == "weight":  # a Dense kernel [out, in], or a LayerNorm scale
+        return (f"{head}/kernel", v.T) if v.ndim == 2 else (f"{head}/scale", v)
+    return f"{head}/{leaf}", v
+
+
+def to_jax_params(state_dict) -> dict[str, np.ndarray]:
+    """The port's state dict -> flat JAX MARN1_onlysp parameters, as the
+    JAX package's ``save_parameters`` names them."""
+    out = {}
+    for key, value in state_dict.items():
+        name, v = _to_jax(key, value.detach().cpu().numpy())
+        out[name] = np.ascontiguousarray(v, dtype=np.float32)
     return out

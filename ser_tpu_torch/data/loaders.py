@@ -1,0 +1,78 @@
+"""Epoch loaders with the reference's sampler semantics (counterpart of
+``ser_tpu/data/loaders.py``, one process).
+
+The valid split is the first ``valid`` fraction of the train set's
+unshuffled index order; train and valid iterate shuffled, test in order.
+Loaders yield padded batch dicts (``collate.py``). The pipeline is
+synchronous numpy on the host.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ser_tpu_torch.data.collate import collate
+from ser_tpu_torch.data.datasets import IEMOCAPDataset
+
+
+class EpochLoader:
+    """Iterates a dataset subset in batches, reshuffling each epoch; every
+    batch is padded to ``batch_size`` rows and L to its bucket."""
+
+    def __init__(self, dataset, indices, batch_size, shuffle=True, seed=0):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return int(np.ceil(len(self.indices) / self.batch_size))
+
+    def num_examples(self):
+        return len(self.indices)
+
+    def __iter__(self):
+        order = self.indices.copy()
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for start in range(0, len(order), self.batch_size):
+            items = [self.dataset[int(i)]
+                     for i in order[start:start + self.batch_size]]
+            yield collate(items, pad_batch=self.batch_size)
+
+
+def get_train_valid_indices(n, valid=0.1):
+    """First ``valid`` fraction of index order -> valid, the rest -> train."""
+    idx = np.arange(n)
+    split = int(valid * n)
+    return idx[split:], idx[:split]
+
+
+def get_loaders(feature_path, dataset="IEMOCAP", batch_size=32, valid=0.1,
+                seed=0, roberta_path=None, wav_path=None):
+    """``(train, valid, test)`` loaders. ``wav_path`` is an optional
+    raw-audio pickle for the MFCC front end; ``"auto"`` takes
+    ``IEMOCAP_wav.pkl`` beside the main pickle."""
+    if dataset == "MELD":
+        raise NotImplementedError(
+            "the port reads IEMOCAP only; MELD is queued (ROADMAP A.8)")
+    if dataset != "IEMOCAP":
+        raise ValueError(f"unknown dataset: {dataset}")
+    path = feature_path + "IEMOCAP_features/IEMOCAP_features_raw.pkl"
+    if wav_path == "auto":
+        wav_path = os.path.join(os.path.dirname(path), "IEMOCAP_wav.pkl")
+    trainset = IEMOCAPDataset(path=path, roberta_path=roberta_path,
+                              wav_path=wav_path)
+    testset = IEMOCAPDataset(path=path, train=False,
+                             roberta_path=roberta_path, wav_path=wav_path)
+    train_idx, valid_idx = get_train_valid_indices(len(trainset), valid)
+    return (
+        EpochLoader(trainset, train_idx, batch_size, shuffle=True, seed=seed),
+        EpochLoader(trainset, valid_idx, batch_size, shuffle=True,
+                    seed=seed + 1),
+        EpochLoader(testset, np.arange(len(testset)), batch_size,
+                    shuffle=False, seed=seed + 2),
+    )

@@ -1,7 +1,10 @@
 """String-keyed model factory (counterpart of ``ser_tpu/models/registry.py``).
 
 One entry so far, the flagship ``MARN1_onlysp``. ``make_inputs`` follows the
-reference trainer: x = cat(mean of the four RoBERTa views, audio).
+reference trainer: x = cat(mean of the four RoBERTa views, audio), from a
+numpy batch on the host. Where the audio front end computes ``acouf`` on the
+device, ``text_features`` gives the host-side mean alone and ``join_inputs``
+concatenates the two tensors there.
 """
 
 from __future__ import annotations
@@ -20,11 +23,16 @@ class ModelSpec:
     name: str
     build: Callable  # (n_classes, generator) -> nn.Module
     make_inputs: Callable  # (numpy batch dict) -> (x, qmask, umask) arrays
+    text_features: Callable  # (numpy batch dict) -> text part of x, array
+    join_inputs: Callable  # (text tensor, acouf tensor) -> x, on their device
+
+
+def _marn1_text(batch):
+    return (batch["r1"] + batch["r2"] + batch["r3"] + batch["r4"]) / 4
 
 
 def _marn1_inputs(batch):
-    textf = (batch["r1"] + batch["r2"] + batch["r3"] + batch["r4"]) / 4
-    x = np.concatenate([textf, batch["acouf"]], axis=-1)
+    x = np.concatenate([_marn1_text(batch), batch["acouf"]], axis=-1)
     return x, batch["qmask"], batch["umask"]
 
 
@@ -33,7 +41,8 @@ _REGISTRY = {
         "MARN1_onlysp",
         lambda n_classes, generator: MARN1OnlySP(n_classes,
                                                  generator=generator),
-        _marn1_inputs),
+        _marn1_inputs, _marn1_text,
+        lambda textf, acouf: torch.cat([textf, acouf], dim=-1)),
 }
 
 

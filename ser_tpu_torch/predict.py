@@ -1,0 +1,157 @@
+"""Batch inference CLI: eval a checkpoint on a split, write res.csv and print
+the metrics as JSON (counterpart of the JAX package's ``predict.py`` and of
+``ModelTrainer.eval_network``).
+
+    python -m ser_tpu_torch.predict --initial_model CKPT.npz \\
+        --feature_path /path/to/features/ [--audio_frontend mfcc]
+    python -m ser_tpu_torch.predict --synthetic --audio_frontend mfcc \\
+        --initial_model CKPT.npz [--device cpu]
+
+The flags are ``predict.py``'s, plus ``--device`` (default ``cuda``; without
+CUDA it raises unless given ``--device cpu``). ``--initial_model`` is the
+JAX package's ``.npz`` of flat parameter names, or with ``--torch_format`` a
+reference torch state dict; either loads tolerantly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import csv
+import json
+import tempfile
+
+import numpy as np
+import torch
+
+from ser_tpu_torch.data.loaders import get_loaders
+from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
+from ser_tpu_torch.device import resolve_device
+from ser_tpu_torch.models.registry import get_model_spec
+from ser_tpu_torch.serving import Predictor
+from ser_tpu_torch.train.checkpoint import load_parameters
+from ser_tpu_torch.train.metrics import weighted_accuracy, weighted_f1
+from ser_tpu_torch.utils.seeding import seed_everything
+
+
+def _parser():
+    p = argparse.ArgumentParser(
+        description="SpeakerEmotionRecognition predict (PyTorch/CUDA port)")
+    p.add_argument("--initial_model", type=str, required=True)
+    p.add_argument("--model", type=str, default="MARN1_onlysp")
+    p.add_argument("--feature_path", type=str,
+                   default="/home/workspaces/SMM22/features/")
+    p.add_argument("--roberta_path", type=str, default=None)
+    p.add_argument("--dataset", type=str, default="IEMOCAP")
+    p.add_argument("--n_classes", type=int, default=6)
+    p.add_argument("--batch_size", type=int, default=80)
+    p.add_argument("--seed", type=int, default=111)
+    p.add_argument("--split", type=str, default="test",
+                   choices=["test", "valid", "train"])
+    p.add_argument("--res_csv", type=str, default="res.csv")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--audio_frontend", type=str, default="none",
+                   help="none / mfcc: compute the 100-d audio slot on the "
+                        "device from raw waveforms")
+    p.add_argument("--torch_format", action="store_true",
+                   help="--initial_model is a reference torch state dict")
+    p.add_argument("--encoder_attention", type=str, default="mha")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def _check_servable(args):
+    """Raise on what the port cannot serve yet, naming the ROADMAP item."""
+    if args.encoder_attention != "mha":
+        raise NotImplementedError(
+            f"--encoder_attention {args.encoder_attention}: the port has the "
+            "reference MHA encoder only; the attention zoo is queued "
+            "(ROADMAP A.16)")
+    try:
+        get_model_spec(args.model)
+    except KeyError as e:
+        raise KeyError(f"{e.args[0]}; the rest of the zoo is queued "
+                       "(ROADMAP A.10-A.12)") from None
+    if args.dataset == "MELD":
+        raise NotImplementedError(
+            "--dataset MELD: the port reads IEMOCAP only; MELD is queued "
+            "(ROADMAP A.8)")
+
+
+def fusion_weights(model: torch.nn.Module) -> dict:
+    """The model's learned scalar fusion weights (w, v, v1, v2), as the JAX
+    trainer reports them."""
+    params = dict(model.named_parameters())
+    return {name: float(params[name].detach().reshape(-1)[0])
+            for name in ("w", "v", "v1", "v2") if name in params}
+
+
+def write_res_csv(path, preds, labels, masks) -> None:
+    """``preds,labels,masks`` rows, in the text form of pandas'
+    ``DataFrame.to_csv(index=False)`` (float32 masks as numpy prints them)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["preds", "labels", "masks"])
+        for p, lab, m in zip(preds, labels, masks):
+            w.writerow([int(p), int(lab), str(np.float32(m))])
+
+
+def eval_network(predictor: Predictor, loader, res_csv=None):
+    """Predict every batch of ``loader``; write ``res_csv`` and return
+    ``(weighted accuracy, weighted F1)`` over the unmasked utterances."""
+    preds, labels, masks = [], [], []
+    for batch in loader:
+        # predictions stay on the device until the loop ends
+        preds.append(predictor.predict_batch(batch)[1].reshape(-1))
+        labels.append(np.asarray(batch["label"]).reshape(-1))
+        masks.append(np.asarray(batch["umask"]).reshape(-1))
+    if not preds:
+        return 0.0, 0.0
+    preds = torch.cat(preds).cpu().numpy()
+    labels = np.concatenate(labels)
+    masks = np.concatenate(masks)
+    if res_csv:
+        write_res_csv(res_csv, preds, labels, masks)
+    return (weighted_accuracy(labels, preds, masks),
+            weighted_f1(labels, preds, masks))
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    _check_servable(args)
+    device = resolve_device(args.device)
+    seed_everything(args.seed)
+    use_frontend = args.audio_frontend not in (None, "", "none")
+    with contextlib.ExitStack() as stack:
+        if args.synthetic:
+            args.feature_path = generate_iemocap_pickles(
+                stack.enter_context(tempfile.TemporaryDirectory(
+                    prefix="ser_tpu_torch_predict_")),
+                seed=args.seed, with_wav=use_frontend)
+        train_loader, valid_loader, test_loader = get_loaders(
+            args.feature_path, dataset=args.dataset, valid=0.2,
+            batch_size=args.batch_size, seed=args.seed,
+            roberta_path=args.roberta_path,
+            wav_path="auto" if use_frontend else None)
+        loader = {"test": test_loader, "valid": valid_loader,
+                  "train": train_loader}[args.split]
+        predictor = Predictor(
+            args.model, seed=args.seed, device=device, n_classes=args.n_classes,
+            audio_frontend=args.audio_frontend if use_frontend else None)
+        load_parameters(predictor.model, args.initial_model,
+                        torch_format=args.torch_format)
+        acc, f1 = eval_network(predictor, loader, args.res_csv)
+
+    print(json.dumps({
+        "model": args.model,
+        "split": args.split,
+        "n_examples": loader.num_examples(),
+        "weighted_accuracy": acc,
+        "weighted_f1": f1,
+        "fusion_weights": fusion_weights(predictor.model),
+        "res_csv": args.res_csv,
+    }, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -2,15 +2,18 @@
 
 ``Predictor`` is the counterpart of the eval forward behind the JAX
 package's ``predict.py`` (``ModelTrainer.eval_network``): it owns one model
-on its device in eval mode and answers padded requests.
+on its device in eval mode and answers padded requests, either as model
+inputs (``predict``) or as a collated batch (``predict_batch``), which may
+carry raw waveforms for the on-device audio front end.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ser_tpu_torch.data.frontend import make_frontend
 from ser_tpu_torch.device import resolve_device
-from ser_tpu_torch.models.registry import build_model
+from ser_tpu_torch.models.registry import get_model_spec
 from ser_tpu_torch.ops.init import generator
 
 
@@ -21,26 +24,54 @@ class Predictor:
     ``compat.from_jax.from_jax_params``); without it the weights are the
     torch-default init drawn from ``seed``. ``device`` defaults to ``cuda``
     and raises where CUDA is missing, unless it is ``"cpu"``.
+    ``audio_frontend`` (None or ``"mfcc"``) computes the audio slot from the
+    ``wav`` field of a batch given to ``predict_batch``.
     """
 
     def __init__(self, model_name: str = "MARN1_onlysp", state_dict=None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, audio_frontend: str | None = None,
+                 n_classes: int = 6):
         self.device = resolve_device(device)
-        model = build_model(model_name, generator(seed))
+        self.spec = get_model_spec(model_name)
+        model = self.spec.build(n_classes, generator(seed))
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        self.frontend = make_frontend(audio_frontend)
         self.n_requests = 0
+
+    def _tensor(self, a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _answer(self, x, qmask, umask):
+        logp = self.model(x, qmask, umask)[0]
+        labels = logp.argmax(-1).reshape(umask.shape)
+        self.n_requests += 1
+        return logp, labels
 
     def predict(self, x, qmask, umask):
         """One padded request: x ``[L, B, 1124]``, qmask ``[L, B, 2]``,
         umask ``[B, L]``. Returns ``(logp [B*L, C], labels [B, L])`` on the
         predictor's device."""
         with torch.inference_mode():
-            x, qmask, umask = (
-                torch.as_tensor(a, dtype=torch.float32, device=self.device)
-                for a in (x, qmask, umask))
-            logp = self.model(x, qmask, umask)[0]
-            labels = logp.argmax(-1).reshape(umask.shape)
-        self.n_requests += 1
-        return logp, labels
+            return self._answer(*(self._tensor(a) for a in (x, qmask, umask)))
+
+    def predict_batch(self, batch):
+        """One collated batch (``data.collate``), numpy arrays. With an
+        audio front end and a ``wav`` field, the waveforms (and ``wav_len``)
+        are copied to the device and the front end computes ``acouf``
+        there; otherwise the batch's ``acouf`` is used. The text views are
+        averaged on the host, so one of them is copied, not four. Returns
+        what ``predict`` returns."""
+        with torch.inference_mode():
+            textf = self._tensor(self.spec.text_features(batch))
+            if self.frontend is not None and "wav" in batch:
+                wav_len = batch.get("wav_len")
+                acouf = self.frontend(
+                    self._tensor(batch["wav"]),
+                    None if wav_len is None else self._tensor(wav_len, torch.int32))
+            else:
+                acouf = self._tensor(batch["acouf"])
+            return self._answer(self.spec.join_inputs(textf, acouf),
+                                self._tensor(batch["qmask"]),
+                                self._tensor(batch["umask"]))

@@ -1,9 +1,11 @@
-"""The recurrence kernel on the card (marker ``cuda``; skips without CUDA).
+"""The CUDA kernels on the card (marker ``cuda``; skips without CUDA).
 
 Imports no JAX, so it also runs on a machine with the card and no JAX:
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
-Tolerance atol 1e-4: the kernel sums in another order than the plain
-version over T serial steps.
+Tolerances: the recurrence atol 1e-4 (another summation order over T serial
+steps); the MFCC kernel rtol 1e-5, atol 2e-4 (its products sum in another
+order than cuBLAS's split sums at small shapes; 64-term DCT sums of values
+up to |log 1e-6| = 13.8).
 """
 
 import numpy as np
@@ -13,6 +15,8 @@ import torch
 from ser_tpu_torch.device import disable_tf32
 from ser_tpu_torch.ops.kernels import LAUNCHES
 from ser_tpu_torch.ops.kernels import lsthm as tlsthm
+from ser_tpu_torch.ops.kernels import mfcc as tmfcc_kernel
+from ser_tpu_torch.ops.mfcc import MFCCConfig, mfcc, mfcc_ref
 
 pytestmark = pytest.mark.cuda
 H = 128
@@ -54,3 +58,35 @@ def test_kernel_refuses_mixed_devices(cuda):
     seqs, consts = _inputs(3, 2, cuda)
     with pytest.raises(ValueError, match="xl_proj on"):
         tlsthm.lsthm_onlysp_recurrence_bidir(seqs, (consts[0].cpu(),) + consts[1:])
+
+
+@pytest.mark.parametrize("N,T,n_mels,n_mfcc", [(37, 4096, 64, 50),
+                                               (3, 16000, 40, 13)])
+def test_mfcc_kernel_matches_plain_version(cuda, N, T, n_mels, n_mfcc):
+    cfg = MFCCConfig(n_mels=n_mels, n_mfcc=n_mfcc)
+    rng = np.random.default_rng(N)
+    x = torch.from_numpy(rng.standard_normal((N, T)).astype(np.float32)).to(cuda)
+    x[1] = 0.0  # padded rows: all-zero waveforms
+    x[N - 1] = 0.0
+    x[0, T // 3:] = 0.0  # a waveform that ends inside the bucket
+    before = LAUNCHES[tmfcc_kernel.NAME]
+    got = mfcc(x, cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES[tmfcc_kernel.NAME] == before + 1
+    want = mfcc_ref(x, cfg)
+    assert got.shape == (N, cfg.n_frames(T), n_mfcc)  # N*F is not a multiple of the tile
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
+    torch.testing.assert_close(got[1], torch.full_like(got[1], 0.0) + got[1, 0],
+                               rtol=0, atol=0)  # every padded frame alike
+
+
+def test_mfcc_kernel_refuses_bad_input(cuda):
+    cfg = MFCCConfig()
+    x = torch.zeros(4, 800, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tmfcc_kernel.mfcc_kernel(x.double(), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmfcc_kernel.mfcc_kernel(x.t().contiguous().t(), cfg)
+    with pytest.raises(ValueError, match="too short"):
+        tmfcc_kernel.mfcc_kernel(x[:, :399].contiguous(), cfg)

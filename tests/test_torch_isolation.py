@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from ser_tpu_torch import predict
 from ser_tpu_torch.device import resolve_device
 from ser_tpu_torch.serving import Predictor
 
@@ -40,3 +41,11 @@ def test_device_rule_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert Predictor(device="cpu").model.linear_in.weight.device.type == "cpu"
+
+
+def test_predict_cli_device_rule_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict.main(["--synthetic", "--audio_frontend", "mfcc",
+                      "--initial_model", str(tmp_path / "none.npz")])
+    assert not list(tmp_path.iterdir())  # refused before any work

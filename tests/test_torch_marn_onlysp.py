@@ -16,7 +16,7 @@ from ser_tpu.compat.torch_export import export_state_dict
 from ser_tpu.data import synthetic as jsynthetic
 from ser_tpu.models.marn_onlysp import MARN1OnlySP as JMARN1OnlySP
 from ser_tpu.train.checkpoint import flatten_params
-from ser_tpu_torch.compat.from_jax import from_jax_params
+from ser_tpu_torch.compat.from_jax import from_jax_params, to_jax_params
 from ser_tpu_torch.data import synthetic
 from ser_tpu_torch.models.registry import build_model, get_model_spec
 from ser_tpu_torch.ops.init import generator
@@ -77,6 +77,15 @@ def test_from_jax_params_equals_export_state_dict(jax_params):
     assert sorted(model.state_dict()) == sorted(exported)
 
 
+def test_to_jax_params_inverts_from_jax_params(jax_params):
+    flat = flatten_params(jax_params)
+    back = to_jax_params(from_jax_params(flat))
+    assert sorted(back) == sorted(flat)
+    for k, v in flat.items():
+        assert back[k].shape == v.shape, k
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
 def test_from_jax_params_rejects_unknown_name():
     with pytest.raises(KeyError, match="no MARN1_onlysp home"):
         from_jax_params({"marn_cell_f/lsthm_q_W_kernel": np.zeros((2, 2))})
@@ -104,3 +113,20 @@ def test_model_refuses_train_mode():
     model = build_model("MARN1_onlysp", generator(0))
     with pytest.raises(RuntimeError, match="eval"):
         model(*map(torch.as_tensor, _batch(False)))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_text_features_joined_on_device_equal_jax_make_inputs(seed):
+    """``predict_batch``'s split of ``make_inputs``: the text mean taken on
+    the host, joined with ``acouf`` as tensors, gives the JAX package's x."""
+    from ser_tpu.models.registry import get_model_spec as jget_model_spec
+
+    spec = get_model_spec("MARN1_onlysp")
+    batch = synthetic.synthetic_batch(L=L, B=B, seed=seed)
+    x = spec.join_inputs(torch.from_numpy(spec.text_features(batch)),
+                         torch.from_numpy(batch["acouf"]))
+    want = jget_model_spec("MARN1_onlysp").make_inputs(
+        {k: jnp.asarray(v) for k, v in batch.items() if k != "vid"})[0]
+    assert x.dtype == torch.float32 and tuple(x.shape) == (L, B, 1124)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(x.numpy(), spec.make_inputs(batch)[0])
