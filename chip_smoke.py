@@ -6,8 +6,13 @@
 Phases, each fatal on failure:
  1. the card's name and power limit, torch and CUDA versions; TF32 off;
  2. build every kernel from ``ser_tpu_torch/csrc`` with nvcc, one process
-    per source, all started together;
- 3. the recurrence kernel against its plain PyTorch version on the card;
+    per source, all started together; registers and spills of every kernel,
+    and for the recurrence its cluster size, the clusters the card holds at
+    once and the shared memory a CTA at each tile height;
+ 3. the recurrence kernel against its plain PyTorch version on the card at
+    T = 110 for B on both sides of every tile height, at T = 1 and with a
+    fully padded row, every launch synchronised, and twice on one input for
+    bit-equal outputs;
  3b. the MFCC kernel against its plain version at the IEMOCAP eval wav
     shape, at ``bench.py``'s [1606, 4000], at 1 s utterances and at all-zero
     rows;
@@ -23,8 +28,10 @@ Phases, each fatal on failure:
  4c. the entry point: ``python -m ser_tpu_torch.predict --synthetic
     --audio_frontend mfcc`` with a seeded checkpoint on the card, against a
     ``--device cpu`` run on the same pickles;
- 5. CUDA-event timings: the recurrence kernel, its plain version and a
-    whole feature request at the IEMOCAP eval shape; the MFCC kernel, its
+ 5. CUDA-event timings: the recurrence kernel, its plain version, its
+    chain floor (T rounds of its cluster exchanges with no work between
+    them) and a whole feature request at the IEMOCAP eval shape; the
+    recurrence over B; the MFCC kernel, its
     plain version, the function's bound (FFT work) and the operations of
     the kernel's dense-product algorithm at the eval wav shape; front-end
     utterances/s at ``bench.py``'s shape; a whole wav request;
@@ -40,6 +47,7 @@ from __future__ import annotations
 import csv
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -77,10 +85,26 @@ def cuda_ms(torch, fn, warmup=3, iters=20):
     return statistics.median(times)
 
 
-def recurrence_inputs(np, torch, T, B, seed, dev):
+def ptxas_summary(log):
+    """One line a kernel from ``nvcc -Xptxas -v``: name, registers, spills."""
+    lines = []
+    for name, body in re.findall(
+            r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*: Compiling|\Z)",
+            log, re.S):
+        short = re.search(r"\d+([a-z_]+kernel(?:ILi\d+E)?)", name)
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        lines.append(f"{short.group(1) if short else name}: "
+                     f"{regs.group(1) if regs else '?'} registers, spill stores "
+                     f"{spill.group(1) if spill else '?'} B, loads "
+                     f"{spill.group(2) if spill else '?'} B")
+    return lines
+
+
+def recurrence_inputs(np, torch, T, B, seed, dev, padded_row=None):
     """Seeded kernel inputs at full width (H = 128), scaled like the
     recurrence's real inputs, with a padded tail (all-zero qmask) on the
-    later half of the rows."""
+    later half of the rows; row ``padded_row`` is padded at every step."""
     H = 128
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(
@@ -91,6 +115,8 @@ def recurrence_inputs(np, torch, T, B, seed, dev):
     qm[np.arange(T)[:, None, None], np.arange(2)[None, :, None],
        np.arange(B)[None, None, :], sp] = 1
     qm *= (np.arange(T)[:, None] < lengths[None, :])[:, None, :, None]
+    if padded_row is not None:
+        qm[:, :, padded_row] = 0
     seqs = (f(T, 2, B, 4 * H), f(T, 2, B, 4 * H), f(T, 2, B, 3 * H),
             torch.from_numpy(qm).to(dev))
     consts = (f(2, 3 * H, 4 * H), f(2, 4 * H), f(2, 3 * H, 4 * H),
@@ -199,7 +225,9 @@ def main() -> int:
     from ser_tpu_torch.ops.kernels import mfcc as mfcc_kernel
     from ser_tpu_torch.ops.kernels.build import build
     from ser_tpu_torch.ops.kernels.lsthm import (
-        NAME, lsthm_onlysp_recurrence_bidir, lsthm_onlysp_recurrence_bidir_ref)
+        CLUSTER, NAME, TILE_ROWS, choose_tiling, launch_exchange_rounds,
+        lsthm_onlysp_recurrence_bidir, lsthm_onlysp_recurrence_bidir_ref,
+        occupancy)
     from ser_tpu_torch.ops.mfcc import mfcc, mfcc_ref
     from ser_tpu_torch.serving import Predictor
     from ser_tpu_torch.train.metrics import weighted_accuracy
@@ -221,23 +249,41 @@ def main() -> int:
     logs = build([NAME, MFCC])
     print(f"[build] {NAME}.cu, {MFCC}.cu in {time.perf_counter() - t0:.1f} s")
     for name in (NAME, MFCC):
-        for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build]   {name}: {line.strip()}")
+        for line in ptxas_summary(logs.get(name, "")):
+            print(f"[build]   {name}: {line}")
+    max_clusters = occupancy()[1]
+    print(f"[build]   {NAME}: clusters of {CLUSTER} CTAs, {max_clusters} resident "
+          "at once; dynamic shared memory a CTA by rows a cluster: " + ", ".join(
+              f"{rows}: {occupancy(rows)[0]} B" for rows in TILE_ROWS))
+    check(max_clusters >= 1, f"the card holds no cluster of {CLUSTER} CTAs")
 
-    # 3. recurrence kernel against its plain version, T = 110, atol 1e-4
-    #    (110 serial steps sum in another order than the plain version's matmuls)
+    # 3. recurrence kernel against its plain version, atol 1e-4 (110 serial
+    #    steps sum in another order than the plain version's matmuls): B on
+    #    both sides of every tile height, one step, a fully padded row; every
+    #    launch synchronised, so a fault in a cluster write shows here
     max_err = 0.0
-    for B in (1, 31, 80):
-        seqs, consts = recurrence_inputs(np, torch, 110, B, seed=B, dev=dev)
+    for T_k, B, padded_row in ((110, 1, None), (110, 8, None), (110, 9, None),
+                               (110, 12, None), (110, 13, None), (110, 31, None),
+                               (110, 33, None), (110, 37, None), (110, 80, None),
+                               (1, 31, None), (110, 31, 5)):
+        seqs, consts = recurrence_inputs(np, torch, T_k, B, seed=B, dev=dev,
+                                         padded_row=padded_row)
+        rows, tiles = choose_tiling(B, max_clusters)
         got = lsthm_onlysp_recurrence_bidir(seqs, consts)
+        torch.cuda.synchronize()
+        again = lsthm_onlysp_recurrence_bidir(seqs, consts)
         torch.cuda.synchronize()
         want = lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        print(f"[kernel] B={B:3d} T=110 max|kernel-plain| = {err:.3e}")
-        check(torch.isfinite(got).all().item(), f"non-finite kernel output B={B}")
-        check(err <= 1e-4, f"kernel disagrees with plain version at B={B}")
+        what = f"B={B:3d} T={T_k}" + (
+            "" if padded_row is None else f" row {padded_row} padded")
+        print(f"[kernel] {what}: {rows} rows a cluster, {2 * tiles} clusters, "
+              f"max|kernel-plain| = {err:.3e}, two runs bit-equal: "
+              f"{torch.equal(got, again)}")
+        check(torch.isfinite(got).all().item(), f"non-finite kernel output, {what}")
+        check(err <= 1e-4, f"kernel disagrees with plain version, {what}")
+        check(torch.equal(got, again), f"two runs of one input differ, {what}")
 
     # 3b. MFCC kernel against its plain version, |err| <= MFCC_ATOL +
     #     MFCC_RTOL*|plain|: the same f32 products summed in another order
@@ -383,15 +429,24 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: lsthm_onlysp_recurrence_bidir_ref(seqs, consts),
                            warmup=1, iters=5)
     predict_ms = cuda_ms(torch, lambda: gpu.predict(x, qmask, umask))
-    for B_sweep in (1, 8, 31, 80):  # does the per-step time depend on B?
+    for B_sweep in (1, 8, 31, 80):  # how the per-step time depends on B
         s_in, c_in = recurrence_inputs(np, torch, 82, B_sweep, seed=7, dev=dev)
+        rows, tiles = choose_tiling(B_sweep, max_clusters)
         ms = cuda_ms(torch, lambda: lsthm_onlysp_recurrence_bidir(s_in, c_in))
         print(f"[time] {card} | kernel T=82 B={B_sweep}: {ms:.4f} ms "
-              f"({ms / 82 * 1e3:.2f} us/step)")
+              f"({ms / 82 * 1e3:.2f} us/step), {rows} rows a cluster, "
+              f"{2 * tiles} clusters of {max_clusters} resident")
     bound_ms, bound_by = recurrence_bound(seqs, consts, out)
     T, _, B_rec = seqs[0].shape[:3]
-    print(f"[time] {card} | recurrence T={T} B={B_rec}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # the chain floor: what T steps' cluster exchanges cost with no work
+    # between them, on the grid this shape runs on (20 calls' worth a launch)
+    rows, tiles = choose_tiling(B_rec, max_clusters)
+    floor_ms = cuda_ms(torch, lambda: launch_exchange_rounds(
+        20 * T, rows, tiles), warmup=1, iters=5) / 20
+    print(f"[time] {card} | recurrence T={T} B={B_rec}: kernel {kernel_ms:.4f} ms "
+          f"({kernel_ms / T * 1e3:.2f} us/step), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), chain floor {floor_ms:.4f} ms "
+          f"(T x {floor_ms / T * 1e3:.2f} us of cluster exchanges)")
     print(f"[time] {card} | predict {n_utts} utterances: {predict_ms:.4f} ms, "
           f"{n_utts / predict_ms * 1e3:.1f} utterances/s")
 
@@ -425,7 +480,7 @@ def main() -> int:
         split = {"HtoD copy": 0.0, MFCC: 0.0, NAME: 0.0, "rest": 0.0}
         for e in events:
             key = ("HtoD copy" if "HtoD" in e.key else MFCC if "mfcc_kernel" in e.key
-                   else NAME if "lsthm_onlysp" in e.key else "rest")
+                   else NAME if "lsthm_onlysp_cluster" in e.key else "rest")
             split[key] += e.self_device_time_total / n / 1e3
         print("[profile]   ms/request: " + ", ".join(
             f"{k} {v:.4f}" for k, v in split.items()))

@@ -1,4 +1,5 @@
-// Bidirectional MARN1_onlysp eval recurrence, one kernel for both directions.
+// Bidirectional MARN1_onlysp eval recurrence, one kernel for both directions,
+// one recurrence step spread over a thread-block cluster of 16 SMs.
 //
 // Replaces the Pallas kernel ser_tpu/ops/pallas/lsthm.py::
 // lsthm_onlysp_recurrence_bidir (and, with one direction, its sibling
@@ -12,67 +13,240 @@
 // products that depend on the step before. At the IEMOCAP eval shape
 // (T = 82, B = 31, both directions) the work is about 4.9 GFLOP of f32 and
 // 43 MB of inputs, outputs and weights, i.e. 0.07 ms at the 67 TFLOP/s f32
-// peak and 0.013 ms at 3.35 TB/s. No amount of bandwidth helps the chain:
-// what counts is how short one step is on the SMs that hold it.
+// peak and 0.013 ms at 3.35 TB/s. Neither rate is the limit: what counts is
+// how short one step is, i.e. its synchronisations and the serial work
+// between them. A kernel that holds a step on one SM and streams 1.77 MB of
+// weights a direction from L2 at every step spends its time on load latency.
 //
 // Design:
-// - Grid: one block per (batch tile of R rows, direction). The TPU's
-//   sequential grid axis over T is a loop inside the block, with
-//   __syncthreads() between the phases of a step. B is not padded; the
-//   ragged last tile reads zeros and writes nothing for rows >= B.
-// - Carries (h_l, c_l, h_a, c_a, z, q0, q1) stay in shared memory for all T
-//   steps, next to the step's state rows and gate sums (~71 KB, dynamic).
-// - Weights: one direction's weights are 1.77 MB, far more than an SM's
-//   227 KB of shared memory, so every step streams them from L2 (both
-//   directions' 3.5 MB stay resident in the 50 MB L2). Thread j owns gate
-//   column j and reads K[k, j], so a warp reads 128 contiguous bytes, and
-//   every weight read feeds R = 8 rows. The later alternative is to split
-//   the gate columns across a thread-block cluster so that each SM keeps its
-//   slice of the weights in shared memory for all T steps.
+// - Split by hidden unit over a cluster of C = 16 CTAs. CTA c owns units
+//   [8c, 8c+8): the four LSTHM gate columns of those units in K_l and K_a
+//   (2 x 32 columns, all 384 rows) and their three GRU columns of gWhh (24
+//   columns, 128 rows). The slice, 110,592 bytes, is gathered into shared
+//   memory once, 16 bytes a load (a unit's 8 columns of a gate are 32
+//   contiguous bytes of a weight row), and stays there for all T steps; the
+//   step loop reads no weight from device memory. Gates, cell update, GRU
+//   and the attention row of a unit all finish inside the CTA that owns it.
+// - What crosses SMs: every CTA needs the full 128-wide h_l, h_a, c_a, z and
+//   h_s. A CTA writes its 8 units of each into its own copy, then copies
+//   that chunk into the 15 peers' shared memory with st.async, 16 bytes a
+//   store, each store counting its bytes on an mbarrier in the receiving
+//   CTA; a CTA goes on when its mbarrier has counted the bytes of all 15
+//   peers. No cluster barrier and no release fence sits in the step loop
+//   (a barrier.cluster with release and acquire costs more than the copies'
+//   own flight time). Every exchange is all-to-all, so the data flow orders
+//   the CTAs by itself: a peer that writes step t's rows has received this
+//   CTA's rows of the exchange before, which were sent after the last read
+//   of what the peer overwrites. h_l, h_a and h_s are double-buffered,
+//   because a fast CTA writes step t's rows while a slow peer still reads
+//   step t-1's in the same phase; the mbarriers alternate between two per
+//   exchange, so bytes of the next use cannot land in an open phase.
+// - Two points of exchange a step, not three. The GRU speaker memory is a
+//   recurrence of its own (h_s(t+1) needs the party memories after step t
+//   and the inputs, nothing of the LSTHM), so step t computes h_s of step
+//   t+1 beside its own LSTHM:
+//     P1  [h(t-1) | z(t-1) | h_s(t)] @ K + x(t) + b and h_s(t) @ gWhh; the
+//         LSTHM gates of step t and the GRU gates of step t+1 for the own
+//         units; send c_a and this CTA's share of s = c_a . wq (exchange
+//         A1), then h_l, h_a and h_s(t+1) (A2); wait for A1;
+//     P2  the rank-1 attention rows of the own units, while A2 flies; send
+//         z (exchange B); wait for A2, then for B.
+//   Of the products of step t+1 only the z rows of K need exchange B: the
+//   h and h_s rows and h_s(t+1) @ gWhh need A2 and run between the send of
+//   z and the wait, in the flight time of exchange B.
+// - No party memory in shared memory. q_p changes only by the scatter
+//   q_p <- q_p (1 - m_p) + h_s m_p, and the GRU needs qs0 @ gWhh for qs0 the
+//   party of argmax(qmask). The product is linear, so each thread keeps
+//   P_p = q_p @ gWhh for its own (row, column) in registers and applies the
+//   same scatter to it with X = h_s(t) @ gWhh: P_p <- P_p (1 - m_p) + X m_p.
+//   For a one-hot or zero qmask this is exactly the product of the scattered
+//   memory. The party memories of the own units (the GRU's z gate needs
+//   qs0 itself) live in registers too.
+// - The products are bound by shared-memory loads, not by FFMA: a warp-wide
+//   load costs the bytes it returns to the 32 lanes, broadcast or not. So
+//   the k axis is split over the 8 warps (warp w takes k in [16w, 16w+16)
+//   of each of h, z, h_s), and a lane holds a tile as square as the shapes
+//   give: 4 columns x R/2 rows of the CTA's 64 x R LSTHM sums (4 + R/2
+//   floats loaded for 2R FFMAs a k), 3 columns x R/4 rows of the 24 x R GRU
+//   sums. The 8 partial sums of an output go through shared memory and are
+//   added in warp order, after x_proj + b, by the thread that applies the
+//   output's sigmoid or tanh; these activations are spread over all 256
+//   threads, a warp holding one kind. The order of every sum is fixed, so
+//   two runs are bit-equal; it is not ascending k, and the result differs
+//   from the plain version by summation order only (2e-7 over 110 steps).
+// - s = c_a . wq: each CTA sums its own 8 units (a shuffle tree) and sends
+//   the 16 shares around with exchange A1; every CTA adds them in CTA order.
+// - The attention sum over k of a (unit, row) pair is split over 2-8
+//   neighbouring lanes (as many as 256 threads give 8R pairs), each
+//   ascending over its share, then a shuffle tree.
+// - Inputs one step ahead: each thread loads the x, gx and qmask values it
+//   will need in the next step into registers at the top of this step, so
+//   no load from device memory sits on the chain. Outputs go straight to
+//   device memory.
+// - Rows per cluster R = 4, 8, 12, 16 (a template over R/4): the wrapper
+//   picks the one that runs a call's clusters in the fewest waves. 16 is
+//   what fits: 110.6 KB of weights, 4 KB of state and 3 KB of partial sums a
+//   row under 227 KB.
+// - Arithmetic stays FFMA: 4-16 rows are far below a wgmma tile's 64 and
+//   the contract is fp32 with TF32 off, so tensor cores are not the lever.
 // - Numerics: f32 throughout, expf/tanhf, no fast math. The sigmoid is
 //   1/(1+expf(-x)), which saturates to 0 or 1 without NaN. The attention
 //   softmax uses the exact row max of the rank-1 logits, alpha*max(wk) or
-//   alpha*min(wk), so every exponent is <= 0.
+//   alpha*min(wk), so every exponent is <= 0. The ragged last tile reads
+//   zeros and writes nothing for rows >= B.
+//
+// Shared memory a CTA, in floats (x 4 bytes), R rows:
+//   weights 27,648 | h_l, h_a, h_s 2 x 128R each | c_a, z 128R each |
+//   partial sums 8 x 72R and 8 x 24R | qmask ring 6R | wq, wk 256 |
+//   shares of s 16R | c_l 8R | max, min of wk 4 | 7 mbarriers 16.
+//   R = 8: 170,000 bytes; R = 16: 228,304 bytes.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int H = 128;       // hidden width of every state (Hl = Ha = Hs)
 constexpr int G = 4 * H;     // LSTHM gate width, f | i | o | c-hat
 constexpr int GH = 3 * H;    // GRU gate width, r | z | n; also LSTHM state rows
-constexpr int R = 8;         // batch rows per block
-constexpr int NT = G;        // threads per block: one per LSTHM gate column
-constexpr int RSTEP = NT / H;      // rows covered by one pass of the elementwise phases
-constexpr int EPT = R / RSTEP;     // (row, unit) pairs per thread in those phases
+constexpr int C = 16;        // CTAs in a cluster (non-portable size)
+constexpr int U = H / C;     // hidden units owned by one CTA
+constexpr int NL = 2 * 4 * U;  // LSTHM gate columns of a CTA: [K_l f,i,o,c | K_a f,i,o,c] x U
+constexpr int NG = 3 * U;      // GRU gate columns of a CTA: [r,z,n] x U
+constexpr int NT = 256;        // threads per CTA
+constexpr int NW = NT / 32;    // warps; each takes 1/NW of a product's k axis
+constexpr int KW = H / NW;     // k per warp in each 128-row segment of a product
+constexpr int SL = NL + 8;     // row stride of the LSTHM partial sums (bank spread)
 constexpr float kInvSqrtH = 0.08838834764831845f;  // 1 / sqrt(128)
+static_assert(NL == 4 * 16 && NG == 3 * 8, "lane tiles: 16 x 4 LSTHM, 8 x 3 GRU columns");
+static_assert(U == 8, "a unit's columns of a gate are two 16-byte loads");
 
-struct Smem {
-  float X[4 * H][R];   // per row [h_l | h_a | z | h_s], k-major for the state products
-  float qs[H][R];      // selected speaker memory qs0, k-major
-  float cl[R][H];
-  float ca[R][H];
-  float q0[R][H];      // party memories
-  float q1[R][H];
-  float gl[R][G];      // text gate sums; first 3H columns hold the GRU h-side projection
-  float ga[R][G];      // audio gate sums
-  float wq[H];
-  float wk[H];
-  float s[R];          // (c_a . wq) / sqrt(H) per row
-  float wkmax;
-  float wkmin;
+template <int RQ>
+struct Layout {  // offsets in floats into the dynamic shared memory
+  static constexpr int R = 4 * RQ;
+  static constexpr int HR = H * R;
+  static constexpr int W = 0;               // [GH][NL]
+  static constexpr int WG = W + GH * NL;    // [H][NG]
+  static constexpr int HL = WG + H * NG;    // [2][H][R], k-major like all states
+  static constexpr int HA = HL + 2 * HR;
+  static constexpr int HS = HA + 2 * HR;
+  static constexpr int CA = HS + 2 * HR;    // [H][R]
+  static constexpr int Z = CA + HR;
+  static constexpr int PS = Z + HR;         // [NW][R][SL] LSTHM partial sums; [0] the gates
+  static constexpr int PG = PS + NW * R * SL;  // [NW][R][NG] GRU partial sums; [0] gates r, z
+  static constexpr int QM = PG + NW * R * NG;  // [3][R][2] qmask of steps t, t+1, t+2
+  static constexpr int WQ = QM + 6 * R;
+  static constexpr int WK = WQ + H;
+  static constexpr int SP = WK + H;         // [C][R] every CTA's share of c_a . wq
+  static constexpr int CL = SP + C * R;     // [R][U] c_l of the own pairs
+  static constexpr int MM = CL + U * R;     // max(wk), min(wk)
+  static constexpr int MB = MM + 4;         // 7 mbarriers of 8 bytes: 2 each for A1, A2, B; set-up
+  static constexpr int FLOATS = MB + 16;
+  static constexpr unsigned kBytesUnits = (C - 1) * U * R * sizeof(float);  // one state from all peers
+  static constexpr unsigned kBytesA1 = kBytesUnits + (C - 1) * R * sizeof(float);  // c_a, shares of s
+  static constexpr unsigned kBytesA2 = 3 * kBytesUnits;                            // h_l, h_a, h_s
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-__device__ __forceinline__ void load_rows(const float (*X)[R], int k, float v[R]) {
-  const float4 a = *reinterpret_cast<const float4*>(&X[k][0]);
-  const float4 b = *reinterpret_cast<const float4*>(&X[k][4]);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
 }
 
-__global__ void __launch_bounds__(NT, 1) lsthm_onlysp_bidir_kernel(
+// Cluster barrier with release and acquire; outside the step loop only.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+typedef unsigned long long Mbarrier;
+
+// One arrival completes a phase, once the bytes it expects have landed.
+__device__ __forceinline__ void mbarrier_init(Mbarrier* mb) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(mb)) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbarrier_expect(Mbarrier* mb, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(mb)), "r"(bytes) : "memory");
+}
+
+// Spins until the phase of the given parity is complete; acquires the bytes
+// that completed it.
+__device__ __forceinline__ void mbarrier_wait(Mbarrier* mb, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(mb)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Stores v at the address of `local` in the shared memory of CTA `peer` and
+// counts its 16 bytes on that CTA's mbarrier at the address of `mb`.
+__device__ __forceinline__ void store_peer(const float* local, Mbarrier* mb, unsigned peer,
+                                           float4 v) {
+  unsigned ra, rm;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(smem_addr(local)), "r"(peer));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rm) : "r"(smem_addr(mb)), "r"(peer));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(ra), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rm) : "memory");
+}
+
+// Copies N floats at `chunk` (written locally and synchronised before) to
+// the same place in all 15 peers.
+template <int N>
+__device__ __forceinline__ void send(float* chunk, Mbarrier* mb, unsigned rank, int tid) {
+  constexpr int V = N / 4;  // float4s
+  for (int e = tid; e < (C - 1) * V; e += NT) {
+    const int f = e % V;
+    const unsigned peer = (rank + 1 + e / V) % C;
+    store_peer(chunk + 4 * f, mb, peer, *reinterpret_cast<const float4*>(chunk + 4 * f));
+  }
+}
+
+// This CTA's units of the [H][R] state `arr`, rows U*rank .. U*rank+U.
+template <int R>
+__device__ __forceinline__ void send_units(float* arr, Mbarrier* mb, unsigned rank, int tid) {
+  send<U * R>(arr + U * rank * R, mb, rank, tid);
+}
+
+// N consecutive floats at p, which is aligned to the widest load N allows.
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      v[i] = a.x; v[i + 1] = a.y; v[i + 2] = a.z; v[i + 3] = a.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 a = *reinterpret_cast<const float2*>(p + i);
+      v[i] = a.x; v[i + 1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
+}
+
+template <int RQ>
+__global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
     const float* __restrict__ xl, const float* __restrict__ xa,
     const float* __restrict__ gx, const float* __restrict__ qm,
     const float* __restrict__ Kl, const float* __restrict__ bl,
@@ -80,213 +254,511 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_bidir_kernel(
     const float* __restrict__ gWhh, const float* __restrict__ gbhh,
     const float* __restrict__ wq, const float* __restrict__ wk,
     float* __restrict__ out, int T, int B) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
+  using L = Layout<RQ>;
+  constexpr int R = L::R, HR = L::HR;
+  // lanes that share the attention sum of one (unit, row) pair
+  constexpr int LP = RQ == 1 ? 8 : RQ == 2 ? 4 : 2;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned rank = cluster_rank();
   const int d = blockIdx.y;
-  const int b0 = blockIdx.x * R;
+  const int b0 = (blockIdx.x / C) * R;
+  const int u0 = U * rank;  // first unit of this CTA
 
-  Kl += (size_t)d * GH * G;
-  Ka += (size_t)d * GH * G;
-  bl += d * G;
-  ba += d * G;
-  gWhh += (size_t)d * H * GH;
-  gbhh += d * GH;
+  float* const W = sm + L::W;
+  float* const WG = sm + L::WG;
+  float* const HL = sm + L::HL;
+  float* const HA = sm + L::HA;
+  float* const HS = sm + L::HS;
+  float* const CA = sm + L::CA;
+  float* const Z = sm + L::Z;
+  float* const PS = sm + L::PS;
+  float* const PG = sm + L::PG;
+  float* const QM = sm + L::QM;
+  float* const WQ = sm + L::WQ;
+  float* const WK = sm + L::WK;
+  float* const SP = sm + L::SP;
+  float* const CL = sm + L::CL;
+  float* const MM = sm + L::MM;
 
-  for (int e = tid; e < 4 * H * R; e += NT) (&s.X[0][0])[e] = 0.f;
-  for (int e = tid; e < R * H; e += NT) {
-    (&s.cl[0][0])[e] = 0.f;
-    (&s.ca[0][0])[e] = 0.f;
-    (&s.q0[0][0])[e] = 0.f;
-    (&s.q1[0][0])[e] = 0.f;
+  auto flat_row = [&](int t, int b) { return ((size_t)t * 2 + d) * B + b; };
+
+  // Three roles of thread tid beside its share of the products.
+  // (1) LSTHM activations: RQ of the CTA's 64R (row, column) sums; item
+  //     tid + NT*i is gate ig (the same for a whole warp), row ir[i],
+  //     modality and unit by lane.
+  const int imu = tid % (2 * U);  // modality * U + unit
+  int ir[RQ], ij[RQ], ig[RQ];
+  float ibias[RQ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int id = tid + NT * i;
+    ig[i] = id / (2 * U * R);
+    ir[i] = id % (2 * U * R) / (2 * U);
+    ij[i] = (imu / U) * 4 * U + ig[i] * U + imu % U;
+    ibias[i] = (imu / U ? ba : bl)[d * G + ig[i] * H + u0 + imu % U];
+  }
+  auto load_x = [&](int t, float (&x)[RQ]) {
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int b = b0 + ir[i];
+      x[i] = (t < T && b < B)
+          ? (imu / U ? xa : xl)[flat_row(t, b) * G + ig[i] * H + u0 + imu % U] : 0.f;
+    }
+  };
+  // (2) GRU gates r and z (tid < 2*U*R): gate rz_g, row rz_r, unit rz_u.
+  const bool rz_thread = tid < 2 * U * R;
+  const int rz_g = tid / (U * R), rz_r = tid % (U * R) / U, rz_u = tid % U;
+  const float rz_bias = rz_thread ? gbhh[d * GH + rz_g * H + u0 + rz_u] : 0.f;
+  auto load_gx_rz = [&](int t) {
+    const int b = b0 + rz_r;
+    return (rz_thread && t < T && b < B)
+        ? gx[flat_row(t, b) * GH + rz_g * H + u0 + rz_u] : 0.f;
+  };
+  // (3) The pair (row prow, unit punit) for tid < U*R: cell updates, the GRU's n
+  //     gate and h_s, outputs; pe is the pair's place in a [H][R] state.
+  const bool pair_thread = tid < U * R;
+  const int prow = tid / U, punit = tid % U;
+  const int pbatch = b0 + prow;
+  const int pe = (u0 + punit) * R + prow;
+  const float n_bias = gbhh[d * GH + 2 * H + u0 + punit];
+  auto load_gx_n = [&](int t) {
+    return (pair_thread && t < T && pbatch < B)
+        ? gx[flat_row(t, pbatch) * GH + 2 * H + u0 + punit] : 0.f;
+  };
+  const bool qm_thread = tid < 2 * R;  // loads qmask[row tid/2][party tid%2]
+  auto load_qm = [&](int t) {
+    const int b = b0 + tid / 2;
+    return (qm_thread && t < T && b < B) ? qm[flat_row(t, b) * 2 + tid % 2] : 0.f;
+  };
+
+  Mbarrier* const mbar = reinterpret_cast<Mbarrier*>(sm + L::MB);
+
+  // A lane's tiles in the products: LSTHM columns 4*lcq .. +3 (text for
+  // lcq < 8, audio above) x rows lrh*R/2 .. +R/2; GRU columns 3*gc3 .. +2 x
+  // rows grq*RQ .. +RQ. acc carries the LSTHM tile from the early products
+  // of a step to its late ones.
+  const int lcq = lane % 16, lrh = lane / 16;
+  const int gc3 = lane % 8, grq = lane / 8;
+  float acc[4][R / 2];
+  auto lsthm_mac = [&](const float* state, int segment) {
+    const float* const wrow = W + segment * H * NL + 4 * lcq;
+    const float* const st = state + lrh * (R / 2);
+#pragma unroll 8
+    for (int k = warp * KW; k < (warp + 1) * KW; ++k) {
+      const float4 w = *reinterpret_cast<const float4*>(wrow + k * NL);
+      float v[R / 2];
+      load_n(st + k * R, v);
+#pragma unroll
+      for (int r = 0; r < R / 2; ++r) {
+        acc[0][r] = fmaf(v[r], w.x, acc[0][r]);
+        acc[1][r] = fmaf(v[r], w.y, acc[1][r]);
+        acc[2][r] = fmaf(v[r], w.z, acc[2][r]);
+        acc[3][r] = fmaf(v[r], w.w, acc[3][r]);
+      }
+    }
+  };
+  // What step tn's products can take before z(tn-1) is there: this warp's
+  // share of the h and h_s rows of K into acc, and of X = h_s(tn) @ gWhh
+  // into PG.
+  auto early_products = [&](int tn) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < R / 2; ++r) acc[c][r] = 0.f;
+    const float* const hs = HS + (tn & 1) * HR;
+    lsthm_mac((lcq < 8 ? HL : HA) + ((tn + 1) & 1) * HR, 0);
+    lsthm_mac(hs, 2);
+    float g[3][RQ];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) g[c][r] = 0.f;
+#pragma unroll 8
+    for (int k = warp * KW; k < (warp + 1) * KW; ++k) {
+      const float* const w = WG + k * NG + 3 * gc3;
+      float v[RQ];
+      load_n(hs + k * R + grq * RQ, v);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) g[c][r] = fmaf(v[r], w[c], g[c][r]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+        PG[(warp * R + grq * RQ + r) * NG + 3 * gc3 + c] = g[c][r];
+  };
+
+  // Rank-1 attention from c_l to c_a for step t: s = (c_a . wq) / sqrt(H)
+  // from the 16 shares, alpha = c_l * s, exact row max mx,
+  // z = sum_k e^{alpha wk_k - mx} c_a[k] / sum_k e^{...}. LP neighbouring
+  // lanes share a pair, each over H / LP consecutive k.
+  auto attention = [&](int t) {
+    if (tid >= U * R * LP) return;
+    const int p = tid / LP, sub = tid % LP;
+    const int ar = p / U, au = p % U;
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s += SP[c * R + ar];
+    const float a = CL[p] * (s * kInvSqrtH);
+    const float mx = a > 0.f ? a * MM[0] : a * MM[1];
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int k = sub * (H / LP); k < (sub + 1) * (H / LP); ++k) {
+      const float e = expf(a * WK[k] - mx);
+      num = fmaf(e, CA[k * R + ar], num);
+      den += e;
+    }
+#pragma unroll
+    for (int off = LP / 2; off > 0; off >>= 1) {
+      num += __shfl_xor_sync(0xffffffffu, num, off);
+      den += __shfl_xor_sync(0xffffffffu, den, off);
+    }
+    if (sub == 0) {
+      const float z = num / den;
+      Z[(u0 + au) * R + ar] = z;
+      if (b0 + ar < B) out[flat_row(t, b0 + ar) * G + 2 * H + u0 + au] = z;
+    }
+  };
+
+  // Set-up: zero every state, gather the weight slice (W[k] = K_l[k] then
+  // K_a[k], WG[k] = gWhh[k], each at gate g the columns g*H + u0 .. + U),
+  // copy the attention vectors and the qmask of steps 0 and 1.
+  for (int e = tid; e < L::PS - L::HL; e += NT) HL[e] = 0.f;
+  for (int e = tid; e < GH * NL / 4; e += NT) {
+    const int k = e / (NL / 4), q = e % (NL / 4);  // q: modality, gate, half of the units
+    const float* const src = (q < 8 ? Kl : Ka) + ((size_t)d * GH + k) * G;
+    reinterpret_cast<float4*>(W)[e] =
+        *reinterpret_cast<const float4*>(src + (q % 8 / 2) * H + u0 + 4 * (q % 2));
+  }
+  for (int e = tid; e < H * NG / 4; e += NT) {
+    const int k = e / (NG / 4), q = e % (NG / 4);  // q: gate, half of the units
+    reinterpret_cast<float4*>(WG)[e] = *reinterpret_cast<const float4*>(
+        gWhh + ((size_t)d * H + k) * GH + (q / 2) * H + u0 + 4 * (q % 2));
   }
   if (tid < H) {
-    s.wq[tid] = wq[d * H + tid];
-    s.wk[tid] = wk[d * H + tid];
+    WQ[tid] = wq[d * H + tid];
+    WK[tid] = wk[d * H + tid];
+  }
+  if (qm_thread) {
+    QM[tid] = load_qm(0);
+    QM[2 * R + tid] = load_qm(1);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 7; ++i) mbarrier_init(mbar + i);
+    mbarrier_fence_init();
   }
   __syncthreads();
-  if (tid == 0) {
-    float mx = s.wk[0], mn = s.wk[0];
-    for (int k = 1; k < H; ++k) {
-      mx = fmaxf(mx, s.wk[k]);
-      mn = fminf(mn, s.wk[k]);
+  if (warp == 0) {  // exact max and min of wk
+    float mx = WK[lane], mn = mx;
+    for (int k = lane + 32; k < H; k += 32) {
+      mx = fmaxf(mx, WK[k]);
+      mn = fminf(mn, WK[k]);
     }
-    s.wkmax = mx;
-    s.wkmin = mn;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    }
+    if (lane == 0) {
+      MM[0] = mx;
+      MM[1] = mn;
+    }
   }
+  // No CTA may write into a peer that is still zeroing its states or
+  // setting up its mbarriers.
+  cluster_sync();
 
-  // In the elementwise phases thread tid owns unit i of rows r0 + RSTEP*p.
-  const int i = tid % H;
-  const int r0 = tid / H;
+  // Carries in registers: the pair's cell states, its own party memories and
+  // n-gate products; the r/z thread's products. P = q_p @ gWhh per party.
+  float cl = 0.f, ca = 0.f, q0 = 0.f, q1 = 0.f, pn0 = 0.f, pn1 = 0.f;
+  float prz0 = 0.f, prz1 = 0.f;
+  float hs_cur = 0.f;
+  if (pair_thread) {  // h_s(0) from q = 0: the h side is gbhh alone
+    const bool ok = pbatch < B;
+    const float xr = ok ? gx[flat_row(0, pbatch) * GH + u0 + punit] : 0.f;
+    const float xz = ok ? gx[flat_row(0, pbatch) * GH + H + u0 + punit] : 0.f;
+    const float rgate = sigmoid(xr + gbhh[d * GH + u0 + punit]);
+    const float zgate = sigmoid(xz + gbhh[d * GH + H + u0 + punit]);
+    const float n = tanhf(load_gx_n(0) + rgate * n_bias);
+    hs_cur = (1.f - zgate) * n;
+    HS[pe] = hs_cur;
+  }
+  float xcur[RQ];
+  load_x(0, xcur);
+  float grz = load_gx_rz(1), gn = load_gx_n(1);
+  __syncthreads();
+  if (tid == 0) mbarrier_expect(mbar + 6, L::kBytesUnits);
+  send_units<R>(HS, mbar + 6, rank, tid);
+  mbarrier_wait(mbar + 6, 0);
+  early_products(0);
 
   for (int t = 0; t < T; ++t) {
-    const size_t row0 = ((size_t)t * 2 + d) * B;  // flat row of (t, d, b = 0)
+    // This step's exchanges count on mbarriers that alternate from step to
+    // step; each is in its (t / 2)-th use.
+    Mbarrier* const mbar_a1 = mbar + (t & 1);
+    Mbarrier* const mbar_a2 = mbar + 2 + (t & 1);
+    Mbarrier* const mbar_b = mbar + 4 + (t & 1);
+    const unsigned parity = (t >> 1) & 1;
+    // Loads for the steps ahead; nothing in this step waits on them but the
+    // qmask store at its end.
+    float xnext[RQ];
+    load_x(t + 1, xnext);
+    const float grz_next = load_gx_rz(t + 2), gn_next = load_gx_n(t + 2);
+    const float qnext = load_qm(t + 2);
 
-    // 1. Speaker select: one-hot of argmax(qmask), so a tie or an
-    //    all-zero (padded) row picks party 0.
-    for (int p = 0; p < EPT; ++p) {
-      const int r = r0 + RSTEP * p, b = b0 + r;
-      float m0 = 0.f, m1 = 0.f;
-      if (b < B) {
-        m0 = qm[(row0 + b) * 2];
-        m1 = qm[(row0 + b) * 2 + 1];
-      }
-      s.qs[i][r] = (m1 > m0) ? s.q1[r][i] : s.q0[r][i];
+    // P1. The late products: the z rows of K, from z(t-1). With them acc is
+    //     this warp's share of [h | z | h_s] @ K for both modalities.
+    lsthm_mac(Z, 1);
+#pragma unroll
+    for (int r = 0; r < R / 2; ++r)
+      *reinterpret_cast<float4*>(PS + (warp * R + lrh * (R / 2) + r) * SL + 4 * lcq) =
+          make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+    __syncthreads();
+
+    // Activations, spread over all threads. LSTHM: x_proj + b + the 8
+    // partial sums, sigmoid for f, i, o and tanh for c-hat, left in PS[0].
+    const float* const qmt = QM + (t % 3) * 2 * R;        // qmask of step t
+    const float* const qmn = QM + ((t + 1) % 3) * 2 * R;  // and of step t+1
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      float* const p = PS + ir[i] * SL + ij[i];
+      float s = ibias[i] + xcur[i];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) s += p[w * R * SL];
+      *p = ig[i] == 3 ? tanhf(s) : sigmoid(s);
+    }
+    // GRU gates r and z of step t+1: scatter X into the party products with
+    // the raw qmask of step t (a padded step leaves them untouched), take
+    // the party of argmax(qmask(t+1)), so a tie or a padded row picks party
+    // 0; left in PG[0].
+    if (rz_thread) {
+      float* const p = PG + rz_r * NG + rz_g * U + rz_u;
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) x += p[w * R * NG];
+      const float m0 = qmt[2 * rz_r], m1 = qmt[2 * rz_r + 1];
+      prz0 = prz0 * (1.f - m0) + x * m0;
+      prz1 = prz1 * (1.f - m1) + x * m1;
+      const float ps = (qmn[2 * rz_r + 1] > qmn[2 * rz_r]) ? prz1 : prz0;
+      *p = sigmoid(grz + (rz_bias + ps));
     }
     __syncthreads();
 
-    // 2. GRU h side: qs0 @ gWhh + gbhh into gl[:, :3H].
-    if (tid < GH) {
-      float acc[R], v[R];
-      const float bias = gbhh[tid];
+    // The own pairs: LSTHM cell updates of step t, then the GRU's n gate and
+    // h_s of step t+1; h_l, h_a, h_s of step t go out.
+    float hs_next = 0.f;
+    if (pair_thread) {
+      const float* const gl = PS + prow * SL + punit;  // f, i, o, c-hat at stride U
+      const float* const ga = gl + 4 * U;
+      cl = gl[0] * cl + gl[U] * gl[3 * U];
+      ca = ga[0] * ca + ga[U] * ga[3 * U];
+      const float hl = tanhf(cl) * gl[2 * U];
+      const float ha = tanhf(ca) * ga[2 * U];
+      HL[(t & 1) * HR + pe] = hl;
+      HA[(t & 1) * HR + pe] = ha;
+      CA[pe] = ca;
+      CL[tid] = cl;
+      // this CTA's share of c_a . wq for row prow: the 8 lanes of the row
+      float share = ca * WQ[u0 + punit];
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = bias;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = gWhh[k * GH + tid];
-        load_rows(s.qs, k, v);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) s.gl[r][tid] = acc[r];
-    }
-    __syncthreads();
+      for (int off = U / 2; off > 0; off >>= 1)
+        share += __shfl_xor_sync(0xffffffffu, share, off);
+      if (punit == 0) SP[rank * R + prow] = share;
 
-    // 3. GRU gates (r, z, n), then scatter h_s into the party memory with
-    //    the raw qmask, so a padded step leaves q untouched.
-    for (int p = 0; p < EPT; ++p) {
-      const int r = r0 + RSTEP * p, b = b0 + r;
-      float xr = 0.f, xz = 0.f, xn = 0.f, m0 = 0.f, m1 = 0.f;
-      if (b < B) {
-        const float* g = gx + (row0 + b) * GH;
-        xr = g[i];
-        xz = g[H + i];
-        xn = g[2 * H + i];
-        m0 = qm[(row0 + b) * 2];
-        m1 = qm[(row0 + b) * 2 + 1];
+      const float m0 = qmt[2 * prow], m1 = qmt[2 * prow + 1];
+      const bool party1 = qmn[2 * prow + 1] > qmn[2 * prow];
+      const float* const gg = PG + prow * NG + punit;  // r, z, partial n at stride U
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) x += gg[w * R * NG + 2 * U];
+      pn0 = pn0 * (1.f - m0) + x * m0;
+      pn1 = pn1 * (1.f - m1) + x * m1;
+      q0 = q0 * (1.f - m0) + hs_cur * m0;
+      q1 = q1 * (1.f - m1) + hs_cur * m1;
+      const float n = tanhf(gn + gg[0] * (n_bias + (party1 ? pn1 : pn0)));
+      hs_next = (1.f - gg[U]) * n + gg[U] * (party1 ? q1 : q0);
+      HS[((t + 1) & 1) * HR + pe] = hs_next;
+      if (pbatch < B) {
+        float* const o = out + flat_row(t, pbatch) * G + u0 + punit;
+        o[0] = hl;
+        o[H] = ha;
+        o[3 * H] = hs_cur;
       }
-      const float rg = sigmoid(xr + s.gl[r][i]);
-      const float zg = sigmoid(xz + s.gl[r][H + i]);
-      const float n = tanhf(xn + rg * s.gl[r][2 * H + i]);
-      const float hs = (1.f - zg) * n + zg * s.qs[i][r];
-      s.X[3 * H + i][r] = hs;
-      s.q0[r][i] = s.q0[r][i] * (1.f - m0) + hs * m0;
-      s.q1[r][i] = s.q1[r][i] * (1.f - m1) + hs * m1;
     }
     __syncthreads();
+    // Exchange A, in two parts: c_a of step t and the shares of s, which
+    // the attention waits for, then h_l, h_a of step t and h_s(t+1), which
+    // fly while the attention runs.
+    if (tid == 0) {
+      mbarrier_expect(mbar_a1, L::kBytesA1);
+      mbarrier_expect(mbar_a2, L::kBytesA2);
+    }
+    send_units<R>(CA, mbar_a1, rank, tid);
+    send<R>(SP + rank * R, mbar_a1, rank, tid);
+    send_units<R>(HL + (t & 1) * HR, mbar_a2, rank, tid);
+    send_units<R>(HA + (t & 1) * HR, mbar_a2, rank, tid);
+    send_units<R>(HS + ((t + 1) & 1) * HR, mbar_a2, rank, tid);
+    mbarrier_wait(mbar_a1, parity);
 
-    // 4. Both LSTHM sums from the old h, the old z and the new h_s:
-    //    x_proj + [h | z | h_s] @ K + b, column j = tid of each.
-    {
-      const int j = tid;
-      float al[R], aa[R], v[R], u[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int b = b0 + r;
-        al[r] = bl[j] + (b < B ? xl[(row0 + b) * G + j] : 0.f);
-        aa[r] = ba[j] + (b < B ? xa[(row0 + b) * G + j] : 0.f);
-      }
-#pragma unroll 2
-      for (int k = 0; k < H; ++k) {  // K rows 0..H-1 multiply each modality's own h
-        const float wl = Kl[k * G + j];
-        const float wa = Ka[k * G + j];
-        load_rows(s.X, k, v);
-        load_rows(s.X, H + k, u);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          al[r] = fmaf(v[r], wl, al[r]);
-          aa[r] = fmaf(u[r], wa, aa[r]);
-        }
-      }
-#pragma unroll 4
-      for (int k = H; k < GH; ++k) {  // K rows H..3H-1 multiply the shared z | h_s
-        const float wl = Kl[k * G + j];
-        const float wa = Ka[k * G + j];
-        load_rows(s.X, H + k, v);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          al[r] = fmaf(v[r], wl, al[r]);
-          aa[r] = fmaf(v[r], wa, aa[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        s.gl[r][j] = al[r];
-        s.ga[r][j] = aa[r];
-      }
-    }
+    // P2. The attention rows of the own units.
+    attention(t);
     __syncthreads();
-
-    // 5. LSTHM gates in the order f, i, o, c-hat.
-    for (int p = 0; p < EPT; ++p) {
-      const int r = r0 + RSTEP * p;
-      const float cl = sigmoid(s.gl[r][i]) * s.cl[r][i] +
-                       sigmoid(s.gl[r][H + i]) * tanhf(s.gl[r][3 * H + i]);
-      const float ca = sigmoid(s.ga[r][i]) * s.ca[r][i] +
-                       sigmoid(s.ga[r][H + i]) * tanhf(s.ga[r][3 * H + i]);
-      s.cl[r][i] = cl;
-      s.ca[r][i] = ca;
-      s.X[i][r] = tanhf(cl) * sigmoid(s.gl[r][2 * H + i]);
-      s.X[H + i][r] = tanhf(ca) * sigmoid(s.ga[r][2 * H + i]);
-    }
-    __syncthreads();
-
-    // 6. s = (c_a . wq) / sqrt(H), one warp per row.
-    {
-      const int warp = tid / 32, lane = tid % 32;
-      if (warp < R) {
-        float acc = 0.f;
-        for (int k = lane; k < H; k += 32) acc = fmaf(s.ca[warp][k], s.wq[k], acc);
+    // Exchange B: z of step t; the early products of step t+1 in its flight.
+    if (tid == 0) mbarrier_expect(mbar_b, L::kBytesUnits);
+    send_units<R>(Z, mbar_b, rank, tid);
+    mbarrier_wait(mbar_a2, parity);
+    early_products(t + 1);
+    if (qm_thread) QM[((t + 2) % 3) * 2 * R + tid] = qnext;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        if (lane == 0) s.s[warp] = acc * kInvSqrtH;
-      }
-    }
-    __syncthreads();
-
-    // 7. Rank-1 attention from c_l to c_a: alpha = c_l * s, exact row max
-    //    m, z_i = sum_k e^{alpha_i wk_k - m_i} c_a[k] / sum_k e^{...}; then
-    //    write [h_l | h_a | z | h_s] for the rows of this tile.
-    for (int p = 0; p < EPT; ++p) {
-      const int r = r0 + RSTEP * p, b = b0 + r;
-      const float a = s.cl[r][i] * s.s[r];
-      const float m = a > 0.f ? a * s.wkmax : a * s.wkmin;
-      float num = 0.f, den = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        const float e = expf(a * s.wk[k] - m);
-        num = fmaf(e, s.ca[r][k], num);
-        den += e;
-      }
-      const float z = num / den;
-      s.X[2 * H + i][r] = z;
-      if (b < B) {
-        float* o = out + (row0 + b) * G;
-        o[i] = s.X[i][r];
-        o[H + i] = s.X[H + i][r];
-        o[2 * H + i] = z;
-        o[3 * H + i] = s.X[3 * H + i][r];
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < RQ; ++i) xcur[i] = xnext[i];
+    grz = grz_next;
+    gn = gn_next;
+    hs_cur = hs_next;
+    mbarrier_wait(mbar_b, parity);
   }
+  // No CTA exits while a peer's copy into it may be in flight.
+  cluster_sync();
+}
+
+// The exchanges of `rounds` steps and nothing else: the copies, the
+// mbarrier waits and the block barriers before them, placed as in the
+// kernel above. Its time over `rounds` is the chain floor of one step: what
+// the synchronisation alone costs.
+template <int RQ>
+__global__ void __launch_bounds__(NT, 1) exchange_rounds_kernel(int rounds) {
+  using L = Layout<RQ>;
+  constexpr int R = L::R, HR = L::HR;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  const unsigned rank = cluster_rank();
+  Mbarrier* const mbar = reinterpret_cast<Mbarrier*>(sm + L::MB);
+  float* const states = sm + L::HL;  // five [H][R] states; the shares where the kernel has them
+  for (int e = tid; e < 5 * HR; e += NT) states[e] = 0.f;
+  if (tid < C * R) sm[L::SP + tid] = 0.f;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) mbarrier_init(mbar + i);
+    mbarrier_fence_init();
+  }
+  cluster_sync();
+  for (int t = 0; t < rounds; ++t) {
+    Mbarrier* const mbar_a1 = mbar + (t & 1);
+    Mbarrier* const mbar_a2 = mbar + 2 + (t & 1);
+    Mbarrier* const mbar_b = mbar + 4 + (t & 1);
+    const unsigned parity = (t >> 1) & 1;
+    __syncthreads();
+    if (tid == 0) {
+      mbarrier_expect(mbar_a1, L::kBytesA1);
+      mbarrier_expect(mbar_a2, L::kBytesA2);
+    }
+    send_units<R>(states, mbar_a1, rank, tid);
+    send<R>(sm + L::SP + rank * R, mbar_a1, rank, tid);
+#pragma unroll
+    for (int i = 1; i < 4; ++i) send_units<R>(states + i * HR, mbar_a2, rank, tid);
+    mbarrier_wait(mbar_a1, parity);
+    __syncthreads();
+    if (tid == 0) mbarrier_expect(mbar_b, L::kBytesUnits);
+    send_units<R>(states + 4 * HR, mbar_b, rank, tid);
+    mbarrier_wait(mbar_a2, parity);
+    mbarrier_wait(mbar_b, parity);
+  }
+  cluster_sync();
+}
+
+// Launch configuration of a kernel on `tiles` clusters a direction, with the
+// attributes a cluster of 16 needs. `attr` must outlive the launch call.
+template <typename K>
+cudaError_t cluster_config(K kernel, int smem, int tiles, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C * tiles, 2);
+  cfg->blockDim = dim3(NT);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int RQ>
+constexpr int kSmemBytes = (int)sizeof(float) * Layout<RQ>::FLOATS;
+
+// Calls f with rows / 4 as a compile-time constant; -1 where `rows` is not
+// a compiled tile height.
+template <typename F>
+int for_rows(int rows, F f) {
+  switch (rows) {
+    case 4: return (int)f(std::integral_constant<int, 1>{});
+    case 8: return (int)f(std::integral_constant<int, 2>{});
+    case 12: return (int)f(std::integral_constant<int, 3>{});
+    case 16: return (int)f(std::integral_constant<int, 4>{});
+  }
+  return -1;
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError(); never synchronises.
+// Launches on `stream` with `rows` batch rows a cluster (4, 8, 12, 16) on
+// `tiles` clusters a direction, and returns the CUDA error of the launch;
+// never synchronises. -1: `rows` is not a compiled tile height.
 extern "C" int lsthm_onlysp_bidir(
     const float* xl, const float* xa, const float* gx, const float* qm,
     const float* Kl, const float* bl, const float* Ka, const float* ba,
     const float* gWhh, const float* gbhh, const float* wq, const float* wk,
-    float* out, int T, int B, void* stream) {
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      lsthm_onlysp_bidir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + R - 1) / R, 2);
-  lsthm_onlysp_bidir_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      xl, xa, gx, qm, Kl, bl, Ka, ba, gWhh, gbhh, wq, wk, out, T, B);
-  return (int)cudaGetLastError();
+    float* out, int T, int B, int rows, int tiles, void* stream) {
+  return for_rows(rows, [&](auto rq) {
+    constexpr int RQ = decltype(rq)::value;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(lsthm_onlysp_cluster_kernel<RQ>, kSmemBytes<RQ>,
+                                     tiles, (cudaStream_t)stream, &cfg, &attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, lsthm_onlysp_cluster_kernel<RQ>, xl, xa, gx, qm,
+                             Kl, bl, Ka, ba, gWhh, gbhh, wq, wk, out, T, B);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  });
+}
+
+// Shared memory a CTA and the number of 16-CTA clusters the card holds at
+// once, for the kernel with `rows` rows a cluster.
+extern "C" int lsthm_onlysp_occupancy(int rows, int* smem_bytes, int* max_clusters) {
+  return for_rows(rows, [&](auto rq) {
+    constexpr int RQ = decltype(rq)::value;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    *smem_bytes = kSmemBytes<RQ>;
+    cudaError_t err = cluster_config(lsthm_onlysp_cluster_kernel<RQ>, kSmemBytes<RQ>, 1,
+                                     nullptr, &cfg, &attr);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveClusters(max_clusters,
+                                          lsthm_onlysp_cluster_kernel<RQ>, &cfg);
+  });
+}
+
+// `rounds` steps' worth of cluster exchanges and barriers with no work
+// between them, on the grid the recurrence would use.
+extern "C" int lsthm_onlysp_exchange_rounds(int rounds, int rows, int tiles, void* stream) {
+  return for_rows(rows, [&](auto rq) {
+    constexpr int RQ = decltype(rq)::value;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(exchange_rounds_kernel<RQ>, kSmemBytes<RQ>, tiles,
+                                     (cudaStream_t)stream, &cfg, &attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, exchange_rounds_kernel<RQ>, rounds);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  });
 }

@@ -8,13 +8,17 @@ with the same contract::
     consts = (K_l, b_l, K_a, b_a, gWhh, gbhh, wq, wk), each [2, .]
     returns  [T, 2, B, 4H] per-step outputs [h_l | h_a | z | h_s], f32
 
-The kernel is ``csrc/lsthm_onlysp.cu``; its source note gives the design and
-what bounds it on the card.
+The kernel is ``csrc/lsthm_onlysp.cu``: one recurrence step runs on a
+thread-block cluster of 16 CTAs that keep their slice of the weights in
+shared memory for all T steps. Its source note gives the design and what
+bounds it on the card. The wrapper decides how a batch is tiled over
+clusters from what the card holds at once (``choose_tiling``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,6 +30,12 @@ from ser_tpu_torch.ops.masking import scatter_parties, select_parties
 NAME = "lsthm_onlysp"
 H = 128
 P = 2
+CLUSTER = 16  # CTAs of a thread-block cluster; each owns H / CLUSTER units
+# The kernel's compiled tile heights (batch rows a cluster); 16 is what fits
+# an SM's shared memory beside the weights.
+TILE_ROWS = (4, 8, 12, 16)
+
+_occupancy: dict[tuple[int, int], tuple[int, int]] = {}  # by (device, rows)
 
 
 def lsthm_onlysp_recurrence_bidir_ref(seqs, consts) -> torch.Tensor:
@@ -78,30 +88,78 @@ def _check(seqs, consts):
             raise ValueError(f"{name} is not contiguous")
 
 
+def choose_tiling(B: int, max_clusters: int) -> tuple[int, int]:
+    """``(rows, tiles)``: batch rows a cluster and clusters a direction for
+    a batch of B on a card that holds ``max_clusters`` clusters at once. A
+    cluster that is not resident waits for a whole T loop, so the tile
+    height (a compiled one, ``TILE_ROWS``) is the one whose ``2 * tiles``
+    clusters run in the fewest waves, and among those the lowest: a step's
+    work grows with its rows."""
+    if B < 1 or max_clusters < 1:
+        raise ValueError(f"no tiling for B={B} on {max_clusters} resident clusters")
+    waves = lambda rows: -(-2 * -(-B // rows) // max_clusters)
+    rows = min(TILE_ROWS, key=lambda rows: (waves(rows), rows))
+    return rows, -(-B // rows)
+
+
+def occupancy(rows: int = TILE_ROWS[-1]) -> tuple[int, int]:
+    """``(shared-memory bytes a CTA, clusters of CLUSTER CTAs the current
+    card holds at once)`` for the kernel with ``rows`` rows a cluster."""
+    key = (torch.cuda.current_device(), rows)
+    if key not in _occupancy:
+        smem, clusters = ctypes.c_int(), ctypes.c_int()
+        err = _library().lsthm_onlysp_occupancy(
+            rows, ctypes.byref(smem), ctypes.byref(clusters))
+        if err != 0:
+            raise RuntimeError(f"lsthm_onlysp_occupancy({rows}): CUDA error {err} "
+                               f"for a cluster of {CLUSTER}")
+        _occupancy[key] = (smem.value, clusters.value)
+    return _occupancy[key]
+
+
 def _launch(seqs, consts) -> torch.Tensor:
     _check(seqs, consts)
     T, _, B = seqs[0].shape[:3]
     out = torch.empty((T, 2, B, 4 * H), dtype=torch.float32,
                       device=seqs[0].device)
-    fn = _library().lsthm_onlysp_bidir
-    ptrs = [t.data_ptr() for t in (*seqs, *consts, out)]
     with torch.cuda.device(out.device):
+        rows, tiles = choose_tiling(B, occupancy()[1])
+        ptrs = [t.data_ptr() for t in (*seqs, *consts, out)]
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*ptrs, T, B, stream)
+        err = _library().lsthm_onlysp_bidir(*ptrs, T, B, rows, tiles, stream)
     if err != 0:
-        raise RuntimeError(f"lsthm_onlysp_bidir launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"lsthm_onlysp_bidir launch failed: CUDA error {err} (cluster of "
+            f"{CLUSTER}, {rows} rows a cluster, {2 * tiles} clusters)")
     LAUNCHES[NAME] += 1
     return out
 
 
+def launch_exchange_rounds(rounds: int, rows: int, tiles: int) -> None:
+    """``rounds`` steps' worth of the kernel's cluster exchanges with no
+    work between them, on the current device and stream: timed, it gives the
+    chain floor of a step."""
+    err = _library().lsthm_onlysp_exchange_rounds(
+        rounds, rows, tiles, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lsthm_onlysp_exchange_rounds: CUDA error {err} "
+                           f"(cluster of {CLUSTER}, {rows} rows, {2 * tiles} clusters)")
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     from ser_tpu_torch.ops.kernels.build import load
 
     lib = load(NAME)
     # every pointer and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.lsthm_onlysp_bidir.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.lsthm_onlysp_bidir.restype = ctypes.c_int
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.lsthm_onlysp_occupancy.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.lsthm_onlysp_exchange_rounds.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for fn in (lib.lsthm_onlysp_bidir, lib.lsthm_onlysp_occupancy,
+               lib.lsthm_onlysp_exchange_rounds):
+        fn.restype = ctypes.c_int
     return lib
 
 

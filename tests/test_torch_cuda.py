@@ -30,12 +30,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(T, B, dev):
+def _inputs(T, B, dev, padded_row=None):
     rng = np.random.default_rng(B)
     f = lambda *s: torch.from_numpy(
         (0.1 * rng.standard_normal(s)).astype(np.float32)).to(dev)
     qm = np.eye(2, dtype=np.float32)[rng.integers(0, 2, size=(T, 2, B))]
     qm[T // 2:, :, 0] = 0.0  # padded tail on row 0
+    if padded_row is not None:
+        qm[:, :, padded_row] = 0.0  # a row that is padding at every step
     seqs = (f(T, 2, B, 4 * H), f(T, 2, B, 4 * H), f(T, 2, B, 3 * H),
             torch.from_numpy(qm).to(dev))
     consts = (f(2, 3 * H, 4 * H), f(2, 4 * H), f(2, 3 * H, 4 * H),
@@ -43,7 +45,7 @@ def _inputs(T, B, dev):
     return seqs, consts
 
 
-@pytest.mark.parametrize("B", [1, 9, 31])
+@pytest.mark.parametrize("B", [1, 8, 9, 31, 33])
 def test_kernel_matches_plain_version(cuda, B):
     seqs, consts = _inputs(20, B, cuda)
     before = LAUNCHES[tlsthm.NAME]
@@ -52,6 +54,33 @@ def test_kernel_matches_plain_version(cuda, B):
     assert LAUNCHES[tlsthm.NAME] == before + 1
     want = tlsthm.lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_kernel_one_step(cuda):
+    seqs, consts = _inputs(1, 9, cuda)
+    got = tlsthm.lsthm_onlysp_recurrence_bidir(seqs, consts)
+    torch.cuda.synchronize()
+    want = tlsthm.lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_kernel_fully_padded_row(cuda):
+    seqs, consts = _inputs(20, 9, cuda, padded_row=4)
+    got = tlsthm.lsthm_onlysp_recurrence_bidir(seqs, consts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    want = tlsthm.lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_kernel_two_runs_bit_equal(cuda):
+    """A race in the cluster exchange would show as a run-to-run difference."""
+    seqs, consts = _inputs(40, 31, cuda)
+    runs = []
+    for _ in range(3):
+        runs.append(tlsthm.lsthm_onlysp_recurrence_bidir(seqs, consts))
+        torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
 
 
 def test_kernel_refuses_mixed_devices(cuda):
