@@ -7,15 +7,19 @@ Phases, each fatal on failure:
  1. the card's name and power limit, torch and CUDA versions; TF32 off;
  2. build every kernel from ``ser_tpu_torch/csrc`` with nvcc, one process
     per source, all started together; registers and spills of every kernel,
-    and for the recurrence its cluster size, the clusters the card holds at
-    once and the shared memory a CTA at each tile height;
+    for the recurrence its cluster size, the clusters the card holds at
+    once and the shared memory a CTA at each tile height, and for the MFCC
+    kernel its shared memory a block and the blocks an SM holds;
  3. the recurrence kernel against its plain PyTorch version on the card at
     T = 110 for B on both sides of every tile height, at T = 1 and with a
     fully padded row, every launch synchronised, and twice on one input for
     bit-equal outputs;
  3b. the MFCC kernel against its plain version at the IEMOCAP eval wav
-    shape, at ``bench.py``'s [1606, 4000], at 1 s utterances and at all-zero
-    rows;
+    shape, at ``bench.py``'s [1606, 4000], at 1 s utterances (several tiles
+    a row, a ragged last tile), at rows that start off 16-byte alignment, at
+    one frame, at hop 200, on a 440 Hz tone and at all-zero rows (equal to
+    the plain version's bit for bit), every shape twice for bit-equal
+    outputs;
  4. the feature path: a ``Predictor`` with seeded full-width MARN1_onlysp
     weights answers three requests (the IEMOCAP eval shape, one dialogue,
     the reference train shape [110, 80]); each must launch the recurrence
@@ -31,9 +35,12 @@ Phases, each fatal on failure:
  5. CUDA-event timings: the recurrence kernel, its plain version, its
     chain floor (T rounds of its cluster exchanges with no work between
     them) and a whole feature request at the IEMOCAP eval shape; the
-    recurrence over B; the MFCC kernel, its
-    plain version, the function's bound (FFT work) and the operations of
-    the kernel's dense-product algorithm at the eval wav shape; front-end
+    recurrence over B; the MFCC kernel at the eval wav shape a wrapper call
+    and as device time (launches replayed from a CUDA graph), on one input
+    and on three inputs taken in turn (125 MB, more than the L2 holds), its
+    bytes floor (its grid, loads and stores with no arithmetic) both ways,
+    its plain version, the function's bound and the operation time of the
+    kernel's own algorithm; front-end
     utterances/s at ``bench.py``'s shape; a whole wav request;
  6. ``torch.profiler`` breakdowns of a feature request and of a wav request
     by kernel and copy.
@@ -58,7 +65,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12   # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
-MFCC_RTOL, MFCC_ATOL = 1e-5, 2e-4  # kernel vs plain: summation order only
+# kernel vs plain: the spectrum by an FFT against dense DFT products (other
+# roundings of the window and the sums), then 64-term sums of logs up to 13.8
+MFCC_RTOL, MFCC_ATOL = 1e-5, 2e-4
 WAV_T, WAV_BUCKET_T = 4000, 4096  # bench.py's utterance, collate's bucket
 PREDICT_SEED = 111  # the predict CLI's default --seed, which --synthetic uses
 
@@ -66,6 +75,25 @@ PREDICT_SEED = 111  # the predict CLI's default --seed, which --synthetic uses
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def cuda_graph_ms(torch, fn, calls=21, replays=7):
+    """Milliseconds of device time a call of ``fn``: ``calls`` calls captured
+    into one CUDA graph, the graph replayed between two CUDA events, the
+    median over ``replays``. No host work lies between the launches, so the
+    reading does not follow the host as a timed wrapper call does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(torch, graph.replay, warmup=2, iters=replays) / calls
 
 
 def cuda_ms(torch, fn, warmup=3, iters=20):
@@ -91,7 +119,7 @@ def ptxas_summary(log):
     for name, body in re.findall(
             r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*: Compiling|\Z)",
             log, re.S):
-        short = re.search(r"\d+([a-z_]+kernel(?:ILi\d+E)?)", name)
+        short = re.search(r"\d+([a-z_]+kernel(?:IL[ib]\d+E)?)", name)
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         lines.append(f"{short.group(1) if short else name}: "
@@ -144,9 +172,12 @@ def mfcc_bound(x, consts, out, cfg):
     flops a sample, and per frame the window win, a real FFT of n_fft
     2.5*n_fft*log2(n_fft) (FFTW's count), the power 3*nbins, 2 per nonzero
     of the filterbank, log(. + eps) 2*n_mels and a fast DCT
-    2.5*n_mels*log2(n_mels). Returns ``(ms, bound_by, dense_ms)`` with
-    ``dense_ms`` the operations time of the kernel's own algorithm, which
-    computes the window+DFT, mel and DCT steps as dense products."""
+    2.5*n_mels*log2(n_mels). Returns ``(ms, bound_by, own_ms)`` with
+    ``own_ms`` the operations time of the kernel's own algorithm: a
+    256-point complex FFT in passes of radix 8, 8 and 4 (56 flops a radix-8
+    butterfly, 16 a radix-4, 6 a twiddle product: 32*56*2 + 64*16 +
+    2*32*7*6), the split and power of 128 bin pairs at 20 flops and bin
+    128 at 5, the filterbank's nonzeros, and the DCT as a dense product."""
     N, T = x.shape
     frames = N * cfg.n_frames(T)
     nbins = cfg.n_fft // 2 + 1
@@ -154,14 +185,15 @@ def mfcc_bound(x, consts, out, cfg):
     per_frame = (cfg.win_length + 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
                  + 3 * nbins + 2 * int((mel != 0).sum()) + 2 * cfg.n_mels
                  + 2.5 * cfg.n_mels * math.log2(cfg.n_mels))
-    dense = (4 * cfg.win_length * nbins + 3 * nbins + 2 * nbins * cfg.n_mels
-             + 2 * cfg.n_mels + 2 * cfg.n_mels * cfg.n_mfcc)
+    own = (cfg.win_length + 2 * 32 * 56 + 64 * 16 + 2 * 32 * 7 * 6
+           + 20 * (cfg.n_fft // 4) + 5 + 2 * int((mel != 0).sum())
+           + 2 * cfg.n_mels + 2 * cfg.n_mels * cfg.n_mfcc)
     flops = 2 * N * T + frames * per_frame
     nbytes = sum(t.numel() * t.element_size() for t in (x, mel, dct, out))
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    dense_ms = (2 * N * T + frames * dense) / F32_PEAK * 1e3
+    own_ms = (2 * N * T + frames * own) / F32_PEAK * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            dense_ms)
+            own_ms)
 
 
 def wav_request(np, batch, seed):
@@ -228,7 +260,7 @@ def main() -> int:
         CLUSTER, NAME, TILE_ROWS, choose_tiling, launch_exchange_rounds,
         lsthm_onlysp_recurrence_bidir, lsthm_onlysp_recurrence_bidir_ref,
         occupancy)
-    from ser_tpu_torch.ops.mfcc import mfcc, mfcc_ref
+    from ser_tpu_torch.ops.mfcc import MFCCConfig, mfcc, mfcc_ref
     from ser_tpu_torch.serving import Predictor
     from ser_tpu_torch.train.metrics import weighted_accuracy
 
@@ -251,6 +283,12 @@ def main() -> int:
     for name in (NAME, MFCC):
         for line in ptxas_summary(logs.get(name, "")):
             print(f"[build]   {name}: {line}")
+    cfg = MFCCFrontend().cfg  # the path's 64 mels, 50 coefficients
+    mfcc_smem, mfcc_blocks = mfcc_kernel.occupancy(cfg)
+    print(f"[build]   {MFCC}: tiles of {mfcc_kernel.TILE_FRAMES} frames, "
+          f"{mfcc_smem} B of dynamic shared memory a block, {mfcc_blocks} blocks "
+          f"an SM on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    check(mfcc_blocks >= 1, f"an SM holds no block of the {MFCC} kernel")
     max_clusters = occupancy()[1]
     print(f"[build]   {NAME}: clusters of {CLUSTER} CTAs, {max_clusters} resident "
           "at once; dynamic shared memory a CTA by rows a cluster: " + ", ".join(
@@ -286,35 +324,50 @@ def main() -> int:
         check(torch.equal(got, again), f"two runs of one input differ, {what}")
 
     # 3b. MFCC kernel against its plain version, |err| <= MFCC_ATOL +
-    #     MFCC_RTOL*|plain|: the same f32 products summed in another order
+    #     MFCC_RTOL*|plain|; every shape twice for bit-equal outputs; all-zero
+    #     rows must equal the plain version's bit for bit (they reach the
+    #     logits as padding)
     eval_batch, n_utts = iemocap_eval_batch(seed=0)
     wav_batch = wav_request(np, eval_batch, seed=5)
     L, B = eval_batch["qmask"].shape[:2]
     wav_rows = torch.from_numpy(wav_batch["wav"].reshape(L * B, -1)).to(dev)
     rng = np.random.default_rng(3)
-    bench_wav = torch.from_numpy(
-        rng.standard_normal((n_utts, WAV_T)).astype(np.float32)).to(dev)
-    cfg = MFCCFrontend().cfg  # the path's 64 mels, 50 coefficients
+    noise = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    bench_wav = noise(n_utts, WAV_T)
+    tone = torch.sin(2 * math.pi * 440 / 16000 * torch.arange(
+        WAV_BUCKET_T, device=dev, dtype=torch.float64)).float()
+    hop200 = MFCCConfig(hop=200, n_mels=cfg.n_mels, n_mfcc=cfg.n_mfcc)
     mfcc_err = 0.0
-    for name, x in (
-            ("iemocap_eval_wav", wav_rows),
-            ("bench_1606x4000", bench_wav),
-            ("one_second", torch.from_numpy(rng.standard_normal(
-                (4, 16000)).astype(np.float32)).to(dev)),
-            ("all_zero_rows", torch.zeros(64, WAV_BUCKET_T, device=dev))):
-        got = mfcc(x, cfg)
+    for name, x, c in (
+            ("iemocap_eval_wav", wav_rows, cfg),
+            ("bench_1606x4000", bench_wav, cfg),
+            ("one_second", noise(4, 16000), cfg),
+            ("unaligned_rows", noise(5, 4001), cfg),
+            ("one_frame", noise(1, 400), cfg),
+            ("hop_200", noise(37, WAV_BUCKET_T), hop200),
+            ("tone_440hz", torch.stack([tone, 1e-3 * tone]), cfg),
+            ("all_zero_rows", torch.zeros(64, WAV_BUCKET_T, device=dev), cfg)):
+        got = mfcc(x, c)
         torch.cuda.synchronize()
-        want = mfcc_ref(x, cfg)
+        again = mfcc(x, c)
+        torch.cuda.synchronize()
+        want = mfcc_ref(x, c)
         err = (got - want).abs()
         worst = (err / (MFCC_ATOL + MFCC_RTOL * want.abs())).max().item()
         mfcc_err = max(mfcc_err, err.max().item())
         print(f"[kernel] {MFCC} {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
               f"max|kernel-plain| = {err.max().item():.3e}, "
-              f"{worst:.3f} of the tolerance")
+              f"{worst:.3f} of the tolerance, two runs bit-equal: "
+              f"{torch.equal(got, again)}")
         check(torch.isfinite(got).all().item(), f"non-finite MFCC output, {name}")
-        check(got.shape == (x.shape[0], cfg.n_frames(x.shape[1]), cfg.n_mfcc),
+        check(got.shape == (x.shape[0], c.n_frames(x.shape[1]), c.n_mfcc),
               f"MFCC output shape, {name}")
         check(worst <= 1.0, f"MFCC kernel disagrees with plain version, {name}")
+        check(torch.equal(got, again), f"two MFCC runs of one input differ, {name}")
+        if name == "all_zero_rows":
+            check(torch.equal(got, want),
+                  "all-zero rows differ from the plain version's padded features")
 
     # 4. the feature path: three requests through the Predictor
     spec = get_model_spec("MARN1_onlysp")
@@ -450,19 +503,40 @@ def main() -> int:
     print(f"[time] {card} | predict {n_utts} utterances: {predict_ms:.4f} ms, "
           f"{n_utts / predict_ms * 1e3:.1f} utterances/s")
 
+    # the MFCC kernel a wrapper call (host work before the launch included)
+    # and as device time from a CUDA graph, on one input (which the 50 MB L2
+    # holds in part from launch to launch) and on three inputs taken in turn
+    # (125 MB: every launch finds its waveform in device memory, as a request
+    # does); the bytes floor both ways
     mfcc_out = mfcc(wav_rows, cfg)
+    turn = [wav_rows, wav_rows.flip(0).contiguous(), wav_rows.roll(1, 0).contiguous()]
+
+    def in_turn(fn):
+        calls = iter(range(10 ** 6))
+        return lambda: fn(turn[next(calls) % 3], cfg)
+
     mfcc_ms = cuda_ms(torch, lambda: mfcc(wav_rows, cfg))
+    mfcc_turn_ms = cuda_ms(torch, in_turn(mfcc), iters=21)
+    mfcc_dev_ms = cuda_graph_ms(torch, lambda: mfcc(wav_rows, cfg))
+    mfcc_dev_turn_ms = cuda_graph_ms(torch, in_turn(mfcc))
+    floor = mfcc_kernel.launch_bytes_floor
+    mfcc_floor_ms = cuda_graph_ms(torch, lambda: floor(wav_rows, cfg))
+    mfcc_floor_turn_ms = cuda_graph_ms(torch, in_turn(floor))
     mfcc_plain_ms = cuda_ms(torch, lambda: mfcc_ref(wav_rows, cfg))
-    mfcc_bound_ms, mfcc_bound_by, dense_ms = mfcc_bound(
+    mfcc_bound_ms, mfcc_bound_by, own_ms = mfcc_bound(
         wav_rows, cfg.tensors(dev), mfcc_out, cfg)
-    print(f"[time] {card} | {MFCC} {tuple(wav_rows.shape)}: kernel {mfcc_ms:.4f} ms, "
-          f"plain {mfcc_plain_ms:.4f} ms, bound {mfcc_bound_ms:.4f} ms "
-          f"({mfcc_bound_by}), {100 * mfcc_bound_ms / mfcc_ms:.1f}% of the bound; "
-          f"the dense-product algorithm's own operations {dense_ms:.4f} ms")
-    bench_kernel_ms = cuda_ms(torch, lambda: mfcc(bench_wav, cfg))
+    print(f"[time] {card} | {MFCC} {tuple(wav_rows.shape)}: kernel {mfcc_ms:.4f} ms "
+          f"a wrapper call, {mfcc_dev_ms:.4f} of device time; three inputs in turn "
+          f"{mfcc_turn_ms:.4f} and {mfcc_dev_turn_ms:.4f}; bytes floor "
+          f"{mfcc_floor_ms:.4f}, three inputs in turn {mfcc_floor_turn_ms:.4f}; "
+          f"plain {mfcc_plain_ms:.4f} ms; bound {mfcc_bound_ms:.4f} ms "
+          f"({mfcc_bound_by}), {100 * mfcc_bound_ms / mfcc_ms:.1f}% of the bound "
+          f"a wrapper call, {100 * mfcc_bound_ms / mfcc_dev_turn_ms:.1f}% in device "
+          f"time in turn; the kernel's own algorithm's operations {own_ms:.4f} ms")
+    bench_kernel_ms = cuda_graph_ms(torch, lambda: mfcc(bench_wav, cfg))
     frontend_ms = cuda_ms(torch, lambda: gpu_wav.frontend(bench_wav))
     print(f"[time] {card} | front end {tuple(bench_wav.shape)}: kernel "
-          f"{bench_kernel_ms:.4f} ms, with pooling {frontend_ms:.4f} ms, "
+          f"{bench_kernel_ms:.4f} ms of device time, with pooling {frontend_ms:.4f} ms, "
           f"{n_utts / frontend_ms * 1e3:.1f} utterances/s")
     wav_predict_ms = cuda_ms(torch, lambda: gpu_wav.predict_batch(wav_batch),
                              warmup=2, iters=10)

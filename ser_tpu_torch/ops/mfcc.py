@@ -8,7 +8,9 @@ power -> mel filterbank product -> log(. + eps) -> DCT-II product. The
 constant matrices are numpy copies of the JAX package's, so both packages
 compute with the same numbers. ``mfcc`` launches the CUDA kernel
 (``ops/kernels/mfcc.py``) on a CUDA tensor and runs ``mfcc_ref`` on a CPU
-tensor.
+tensor. The kernel computes the same function by an FFT and reads neither
+DFT matrix: its constants (``window``, a twiddle table, the filterbank as
+bands, ``dct``) are made by its wrapper.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ class MFCCConfig:
         self.sr, self.n_fft, self.win_length = sr, n_fft, win_length
         self.hop, self.n_mels, self.n_mfcc = hop, n_mels, n_mfcc
         self.preemph, self.eps = preemph, eps
-        window = hamming_window(win_length)
+        self.window = window = hamming_window(win_length)
         cos_m, sin_m = dft_matrices(n_fft)
         # the window and the zero pad (win_length -> n_fft) folded into the
         # DFT matrices: frames stay win_length wide
@@ -88,6 +90,8 @@ class MFCCConfig:
         self.mel = mel_filterbank(sr, n_fft, n_mels)
         self.dct = dct_matrix(n_mels, n_mfcc)
         self._on: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+        # the CUDA kernel's own constants by device (``ops/kernels/mfcc.py``)
+        self.kernel_on: dict[torch.device, tuple[torch.Tensor, ...]] = {}
 
     def n_frames(self, n_samples: int) -> int:
         return max(0, 1 + (n_samples - self.win_length) // self.hop)

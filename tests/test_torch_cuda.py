@@ -3,9 +3,10 @@
 Imports no JAX, so it also runs on a machine with the card and no JAX:
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
 Tolerances: the recurrence atol 1e-4 (another summation order over T serial
-steps); the MFCC kernel rtol 1e-5, atol 2e-4 (its products sum in another
-order than cuBLAS's split sums at small shapes; 64-term DCT sums of values
-up to |log 1e-6| = 13.8).
+steps); the MFCC kernel rtol 1e-5, atol 2e-4 (its spectrum comes from an FFT
+with the window applied first, the plain version's from dense products with
+the window folded into the DFT matrices; then 64-term DCT sums of values up
+to |log 1e-6| = 13.8).
 """
 
 import numpy as np
@@ -108,6 +109,85 @@ def test_mfcc_kernel_matches_plain_version(cuda, N, T, n_mels, n_mfcc):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
     torch.testing.assert_close(got[1], torch.full_like(got[1], 0.0) + got[1, 0],
                                rtol=0, atol=0)  # every padded frame alike
+
+
+def _noise(shape, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+def _tone(dev, T=4096, hz=440.0):
+    t = torch.arange(T, device=dev, dtype=torch.float64)
+    return torch.sin(2 * np.pi * hz / 16000 * t).float()
+
+
+MFCC_SHAPES = {
+    "unaligned_rows": ((5, 4001), {}),          # every second row off 16-byte alignment
+    "one_frame": ((1, 400), {}),
+    "several_tiles_ragged": ((4, 16000), {}),   # 98 frames: four tiles of 24 and one of 2
+    "hop_200": ((6, 4096), {"hop": 200}),
+    "odd_hop": ((3, 4099), {"hop": 161}),       # frames off 8-byte alignment in shared memory
+    "odd_n_mfcc": ((3, 8000), {"n_mels": 40, "n_mfcc": 13}),
+}
+
+
+@pytest.mark.parametrize("shape,kw", MFCC_SHAPES.values(), ids=MFCC_SHAPES.keys())
+def test_mfcc_kernel_shapes(cuda, shape, kw):
+    cfg = MFCCConfig(**{"n_mels": 64, "n_mfcc": 50, **kw})
+    x = _noise(shape, cuda, seed=shape[1])
+    got = mfcc(x, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], cfg.n_frames(shape[1]), cfg.n_mfcc)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, mfcc_ref(x, cfg), rtol=1e-5, atol=2e-4)
+
+
+def test_mfcc_kernel_tone(cuda):
+    """Weak bins beside a strong one: the hardest input for the FFT route."""
+    cfg = MFCCConfig(n_mels=64, n_mfcc=50)
+    tone = _tone(cuda)
+    x = torch.stack([tone, 1e-3 * tone, 0.5 * tone + 1e-4 * _noise((4096,), cuda)])
+    got = mfcc(x, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mfcc_ref(x, cfg), rtol=1e-5, atol=2e-4)
+
+
+def test_mfcc_kernel_three_launches_bit_equal(cuda):
+    cfg = MFCCConfig(n_mels=64, n_mfcc=50)
+    x = _noise((37, 4096), cuda)
+    runs = []
+    for _ in range(3):
+        runs.append(mfcc(x, cfg))
+        torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+def test_mfcc_kernel_padded_rows_equal_plain_version(cuda):
+    """All-zero rows reach the logits as padding, so they must be the plain
+    version's features bit for bit, wherever they lie in the batch. The plain
+    version is taken at 64 all-zero rows: at a few rows cuBLAS sums the DCT
+    product in another order."""
+    cfg = MFCCConfig(n_mels=64, n_mfcc=50)
+    want = mfcc_ref(torch.zeros(64, 4096, device=cuda), cfg)
+    assert torch.equal(want, want[:1, :1].expand_as(want))
+    x = _noise((37, 4096), cuda)
+    x[[0, 5, 36]] = 0.0
+    got = mfcc(x, cfg)
+    torch.cuda.synchronize()
+    for row in (0, 5, 36):
+        assert torch.equal(got[row], want[0]), row
+    assert torch.equal(mfcc(torch.zeros(64, 4096, device=cuda), cfg), want)
+
+
+def test_mfcc_bytes_floor_launches_and_counts_nothing(cuda):
+    cfg = MFCCConfig(n_mels=64, n_mfcc=50)
+    x = _noise((37, 4096), cuda)
+    before = LAUNCHES[tmfcc_kernel.NAME]
+    out = tmfcc_kernel.launch_bytes_floor(x, cfg)
+    torch.cuda.synchronize()
+    assert out.shape == (37, 24, 50) and LAUNCHES[tmfcc_kernel.NAME] == before
+    smem, blocks = tmfcc_kernel.occupancy(cfg)
+    assert 0 < smem <= 232448 and blocks >= 1
 
 
 def test_mfcc_kernel_refuses_bad_input(cuda):
