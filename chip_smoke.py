@@ -43,7 +43,30 @@ Phases, each fatal on failure:
     kernel's own algorithm; front-end
     utterances/s at ``bench.py``'s shape; a whole wav request;
  6. ``torch.profiler`` breakdowns of a feature request and of a wav request
-    by kernel and copy.
+    by kernel and copy;
+ 7a. the rank-1 attention kernel (forward and backward) against autograd
+    through its plain version at [2, B, 128] for B = 80, 31, 1, with p = 0
+    and 0.2 on one seed: every output within its stated tolerance, two runs
+    bit-equal, the kept fraction of its own mask over 2.6 M draws within
+    1 - p +- 0.002 and equal to the plain mask's count;
+ 7b. how far one f32 step's gradients lie from an f64 step on the CPU at
+    [64, 16], at the reference's init and with its constant-initialised
+    parameters made random; then one train step at the reference train
+    shape [110, 80] on the card against the same step on the CPU (same
+    seeded weights, the constant-initialised ones made random; dropout
+    off): the loss, every gradient, the dead set and the Adam update; T
+    forward and T backward launches of the rank-1 kernel;
+ 7c. the train path: ``ModelTrainer`` trains 2 epochs at batch 80 on the
+    ``--synthetic`` pickles (rank-1 kernel in every step, recurrence kernel
+    in every eval batch), one train step with the MFCC front end, then
+    ``python -m ser_tpu_torch.train --synthetic --epoch 2`` and ``python -m
+    ser_tpu_torch.predict`` on its epoch-2 checkpoint;
+ 8. train timings: the rank-1 kernel a wrapper call and in device time
+    (CUDA graph), its plain version and its bound; a whole train step at
+    [110, 80] (CUDA events, median of 5) and its peak device memory, with
+    the kernel and with the plain version swapped in; the recurrence's
+    forward and backward inside a step; a ``torch.profiler`` profile of a
+    train step.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -54,6 +77,7 @@ from __future__ import annotations
 import csv
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -65,6 +89,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12   # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
+# H100 SXM special-function rate: 16 results a clock an SM for ex2 and the
+# other transcendentals at compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput), 132 SMs, 1.98 GHz boost clock
+# (data sheet)
+SFU_RATE = 16 * 132 * 1.98e9
+# rank-1 kernel vs its plain version: 128-term f32 sums in another order;
+# dwq and dwk sum B * 128 terms, so their absolute part scales with their
+# largest entry
+RANK1_RTOL, RANK1_ATOL = 1e-4, 1e-5
+# a train step card vs CPU, dropout off: the loss at rtol 1e-5; a gradient
+# within 1e-3 of its tensor's largest |entry| plus 1e-6 of the step's
+# largest (tests/test_torch_train_step.py's contract against the JAX
+# package); Adam's first step moves a parameter by lr * sign(g), so the
+# updates agree within 2.05 lr
+TRAIN_LOSS_RTOL, GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-3, 1e-6
+TRAIN_L, TRAIN_B, TRAIN_LR = 110, 80, 1e-3
+# the parameters the reference declares and never uses: outside the graph,
+# .grad stays None and Adam skips them
+DEAD = re.compile(r"^marn_cell_[fb]\.(crossatt_l2a\.Wv|crossatt_a2l\.|lstm_q0\.|"
+                  r"lstm_q1\.|lstm_s\.)|^encoder_[la]\.pos_ffn\.fc\.|^linear\.")
 # kernel vs plain: the spectrum by an FFT against dense DFT products (other
 # roundings of the window and the sums), then 64-term sums of logs up to 13.8
 MFCC_RTOL, MFCC_ATOL = 1e-5, 2e-4
@@ -226,11 +270,149 @@ def device_profile(torch, fn, n):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()  # kernels and copies, not host ops
+    # kernels and copies: not host ops, and not the optimizer's annotation
+    # of the device span its own kernels fill
+    events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("Activity Buffer")]
+              and not e.key.startswith(("Activity Buffer", "Optimizer."))]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     return wall_ms, busy_ms, events
+
+
+def rank1_inputs(torch, B, dev, seed):
+    """Seeded rank-1 attention inputs at D = 128, scaled like the train
+    recurrence's cell states: x1, x2, wq, wk and an output gradient."""
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *s, sc=1.0, at=0.0: (at + sc * torch.randn(*s, generator=g)).to(dev)
+    return (n(2, B, 128, sc=2.0), n(2, B, 128, sc=0.5), n(2, 128, sc=0.1, at=1.0),
+            n(2, 128, sc=0.3, at=1.0), n(2, B, 128))
+
+
+def rank1_fwd_bwd(torch, fn, ins, g, seed, step, p):
+    """``(z, dx1, dx2, dwq, dwk)`` of ``fn`` by autograd, synchronised."""
+    xs = [x.clone().requires_grad_() for x in ins]
+    z = fn(*xs, seed, step, p)
+    torch.cuda.synchronize()
+    grads = torch.autograd.grad(z, xs, g)
+    torch.cuda.synchronize()
+    return (z.detach(), *grads)
+
+
+def rank1_bound(B, D=128):
+    """Least time for one step's rank-1 attention at [2, B, D]: ``{part:
+    (ms, bound_by)}`` for the forward, the backward and both. The work that
+    depends on (b, i, k): forward one exp and 4 flops a pair (product,
+    shift, the two sums); backward one exp again (the function keeps no
+    [B, D, D] state between the two) and 12 flops (logit 2, A2, A3, B1, B2,
+    B3 as products and sums). Bytes: x1, x2, wq, wk in, z out; backward
+    also g in, dx1, dx2, dwq, dwk out. Each of exps at SFU_RATE, flops at
+    F32_PEAK, bytes at HBM_RATE; the largest is the bound."""
+    pairs, row, vec = 2 * B * D * D, 2 * B * D * 4, 2 * D * 4
+    work = {"fwd": (pairs, 4 * pairs, 3 * row + 2 * vec),
+            "bwd": (pairs, 12 * pairs, 5 * row + 4 * vec)}
+    work["both"] = tuple(a + b for a, b in zip(work["fwd"], work["bwd"]))
+    out = {}
+    for part, (exps, flops, nbytes) in work.items():
+        times = {"operations (exp)": exps / SFU_RATE * 1e3,
+                 "operations": flops / F32_PEAK * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
+        by, ms = max(times.items(), key=lambda kv: kv[1])
+        out[part] = (ms, "bytes" if by == "bytes" else "operations", by)
+    return out
+
+
+def no_dropout(model, Dropout):
+    """Every dropout rate of the port's model set to 0."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    model.dropout_rate = model.attn_dropout = 0.0
+
+
+def randomize_constants(torch, models, seed, prefix=""):
+    """Seeded random values, the same on every model, for the parameters
+    (whose names start with ``prefix``) that the reference initialises to a
+    constant: the sequence attentions' W (ones), the rank-1 wq, wk (ones),
+    LayerNorm (ones, zeros) and the fusion scalars (ones). A trained model
+    has no such constants, and with the sequence attentions' ones the
+    gradients of an f32 step carry percents of rounding noise
+    (``init_conditioning``). A matrix gets N(0, 1/fan_in), a vector or a
+    scalar its constant plus 0.1 N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    new = {}
+    for name, p in models[0].named_parameters():
+        if not name.startswith(prefix) or (p.numel() > 1 and p.detach().std().item() > 0):
+            continue
+        base = p.detach().cpu()
+        new[name] = (torch.randn(p.shape, generator=g) / p.shape[0] ** 0.5
+                     if p.ndim == 2 and p.shape[0] > 1
+                     else base + 0.1 * torch.randn(p.shape, generator=g))
+    with torch.no_grad():
+        for model in models:
+            params = dict(model.named_parameters())
+            for name, value in new.items():
+                params[name].copy_(value.to(params[name].device))
+    return sorted(new)
+
+
+def init_conditioning(torch, L=64, B=16):
+    """How far one f32 train step's gradients lie from the same step in f64,
+    on the CPU at [L, B] (7b's batch seed and lengths), dropout off:
+    ``{init: worst max|g32 - g64| / max|g64| over the tensors}`` at the
+    reference's init, with only the sequence attentions' W made random, and
+    with every constant-initialised parameter made random. A tensor whose
+    f64 gradient is below 1e-6 of the step's largest (zero but for
+    rounding) is left out."""
+    import copy
+
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.models.registry import build_model, get_model_spec
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.train.losses import masked_loss
+
+    batch = synthetic_batch(L=L, B=B, seed=1, min_len=20)
+    inputs = get_model_spec("MARN1_onlysp").make_inputs(batch)
+    labels = torch.as_tensor(batch["label"]).reshape(-1)
+    out = {}
+    for init, prefix in (("reference", None), ("sequence attentions random", "crossatt_"),
+                         ("constants random", "")):
+        base = build_model("MARN1_onlysp", generator(0))
+        if prefix is not None:
+            randomize_constants(torch, [base], seed=1, prefix=prefix)
+        grads = {}
+        for dtype in (torch.float32, torch.float64):
+            model = copy.deepcopy(base).to(dtype).train()
+            no_dropout(model, Dropout)
+            x, qmask, umask = (torch.as_tensor(a).to(dtype) for a in inputs)
+            logp = model(x, qmask, umask, generator=torch.Generator())[0]
+            masked_loss(logp, labels, umask).backward()
+            grads[dtype] = {n: p.grad.double() for n, p in model.named_parameters()
+                            if p.grad is not None}
+        g32, g64 = grads[torch.float32], grads[torch.float64]
+        top = max(g.abs().max().item() for g in g64.values())
+        out[init] = max(((g32[n] - g).abs().max() / g.abs().max()).item()
+                        for n, g in g64.items() if g.abs().max().item() > 1e-6 * top)
+    return out
+
+
+def grad_check(torch, cpu_model, card_model):
+    """``(worst fraction of the tolerance, names with .grad None on the CPU,
+    the same on the card)``."""
+    cpu = dict(cpu_model.named_parameters())
+    card = dict(card_model.named_parameters())
+    top = max(p.grad.abs().max().item() for p in cpu.values() if p.grad is not None)
+    worst = 0.0
+    for name, p in cpu.items():
+        if p.grad is None or card[name].grad is None:
+            continue
+        tol = GRAD_RTOL * p.grad.abs().max().item() + GRAD_FLOOR * top
+        worst = max(worst, (card[name].grad.cpu() - p.grad).abs().max().item() / tol)
+    return (worst, {n for n, p in cpu.items() if p.grad is None},
+            {n for n, p in card.items() if p.grad is None})
+
+
+def score_lines(path):
+    return [line for line in Path(path).read_text().splitlines() if " —— epoch " in line]
 
 
 def main() -> int:
@@ -248,23 +430,28 @@ def main() -> int:
 
     from ser_tpu_torch.compat.from_jax import to_jax_params
     from ser_tpu_torch.data.frontend import MFCCFrontend
+    from ser_tpu_torch.data.loaders import get_loaders
     from ser_tpu_torch.data.synthetic import (generate_iemocap_pickles,
                                               iemocap_eval_batch,
                                               synthetic_batch)
     from ser_tpu_torch.device import disable_tf32
+    from ser_tpu_torch.models import marn_onlysp
     from ser_tpu_torch.models.registry import get_model_spec
     from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from ser_tpu_torch.ops.kernels import mfcc as mfcc_kernel
+    from ser_tpu_torch.ops.kernels import rank1 as rank1_kernel
     from ser_tpu_torch.ops.kernels.build import build
     from ser_tpu_torch.ops.kernels.lsthm import (
         CLUSTER, NAME, TILE_ROWS, choose_tiling, launch_exchange_rounds,
         lsthm_onlysp_recurrence_bidir, lsthm_onlysp_recurrence_bidir_ref,
         occupancy)
+    from ser_tpu_torch.ops.layers import Dropout
     from ser_tpu_torch.ops.mfcc import MFCCConfig, mfcc, mfcc_ref
     from ser_tpu_torch.serving import Predictor
     from ser_tpu_torch.train.metrics import weighted_accuracy
+    from ser_tpu_torch.train.trainer import ModelTrainer
 
-    MFCC = mfcc_kernel.NAME
+    MFCC, RANK1 = mfcc_kernel.NAME, rank1_kernel.NAME
 
     # 1. the card
     card = subprocess.run(
@@ -278,9 +465,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = build([NAME, MFCC])
-    print(f"[build] {NAME}.cu, {MFCC}.cu in {time.perf_counter() - t0:.1f} s")
-    for name in (NAME, MFCC):
+    logs = build([NAME, MFCC, RANK1])
+    print(f"[build] {NAME}.cu, {MFCC}.cu, {RANK1}.cu in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in (NAME, MFCC, RANK1):
         for line in ptxas_summary(logs.get(name, "")):
             print(f"[build]   {name}: {line}")
     cfg = MFCCFrontend().cfg  # the path's 64 mels, 50 coefficients
@@ -564,6 +752,260 @@ def main() -> int:
                 print(f"[profile]   {e.self_device_time_total / n / 1e3:9.4f} "
                       f"ms/request x{e.count // n:<4d} {e.key[:90]}")
 
+    # 7a. the rank-1 attention kernel against autograd through its plain
+    #     version, forward and backward, p = 0 and 0.2 on one seed (so one
+    #     mask); every launch synchronised; two runs bit-equal
+    rank1_seed = torch.tensor([20240611], dtype=torch.int32, device=dev)
+    rank1_err, rank1_worst = 0.0, 0.0
+    for B in (80, 31, 1):
+        *ins, g_out = rank1_inputs(torch, B, dev, seed=B)
+        for p in (0.0, 0.2):
+            got = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention, ins, g_out,
+                                rank1_seed, 3, p)
+            again = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention, ins, g_out,
+                                  rank1_seed, 3, p)
+            want = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention_ref, ins, g_out,
+                                 rank1_seed, 3, p)
+            fracs = []
+            for name, a, b in zip(("z", "dx1", "dx2", "dwq", "dwk"), got, want):
+                scale = b.abs().max().item() if name in ("dwq", "dwk") else 1.0
+                err = (a - b).abs()
+                rank1_err = max(rank1_err, err.max().item())
+                frac = (err / (RANK1_ATOL * scale + RANK1_RTOL * b.abs())).max().item()
+                fracs.append(f"{name} {frac:.3f}")
+                rank1_worst = max(rank1_worst, frac)
+                check(torch.isfinite(a).all().item(), f"non-finite {RANK1} {name}, B={B}")
+                check(frac <= 1.0, f"{RANK1} {name} disagrees with its plain "
+                      f"version, B={B}, p={p}")
+            bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"[kernel] {RANK1} [2, {B}, 128] p={p}: fraction of the tolerance "
+                  f"{', '.join(fracs)}; two runs bit-equal: {bit_equal}")
+            check(bit_equal, f"two {RANK1} runs differ, B={B}, p={p}")
+    # the kernel's own mask: with wk = 0 every e is 1, and with x2 = 1
+    # z = kept / ((1 - p) D) a row
+    ones = torch.ones(2, TRAIN_B, 128, device=dev)
+    z = rank1_kernel.rank1_attention(
+        torch.randn(2, TRAIN_B, 128, device=dev), ones, torch.ones(2, 128, device=dev),
+        torch.zeros(2, 128, device=dev), rank1_seed, 0, 0.2)
+    torch.cuda.synchronize()
+    kept = int((z * 0.8 * 128).round().sum().item())
+    draws = 2 * TRAIN_B * 128 * 128
+    plain_kept = int(rank1_kernel.keep_mask(rank1_seed, 0, TRAIN_B, 0.2).sum().item())
+    print(f"[kernel] {RANK1} mask: kept {kept} of {draws} draws "
+          f"({kept / draws:.6f}, 1 - p = 0.8), plain mask {plain_kept}")
+    check(abs(kept / draws - 0.8) <= 0.002, f"{RANK1} keeps {kept / draws} of its draws")
+    check(kept == plain_kept, f"{RANK1} mask differs from the plain version's")
+
+    # 7b. one train step at [110, 80], card against CPU, same weights,
+    #     dropout off; the CPU side runs the plain version
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=20)
+    t0 = time.perf_counter()
+    conditioning = init_conditioning(torch)
+    print("[train] f32 against f64 gradients of one step on the CPU at [64, 16], of a "
+          "tensor's largest: " + ", ".join(f"{k} {v:.3e}" for k, v in conditioning.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    check(conditioning["constants random"] <= 1e-4, "f32 and f64 steps disagree on the CPU")
+    trainers = {d: ModelTrainer(device=d, seed=0, lr=TRAIN_LR) for d in ("cpu", "cuda")}
+    randomized = randomize_constants(torch, [t.model for t in trainers.values()], seed=1)
+    print(f"[train] {len(randomized)} constant-initialised parameters given seeded "
+          "random values on both sides")
+    step_loss = {}
+    for d, t in trainers.items():
+        no_dropout(t.model, Dropout)
+        reset_launches()
+        t0 = time.perf_counter()
+        step_loss[d] = t._train_step_impl(train_batch, TRAIN_LR).item()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            step_launches = LAUNCHES[RANK1]
+        print(f"[train] one step [{TRAIN_L}, {TRAIN_B}] on {d}: loss {step_loss[d]:.7f} "
+              f"in {time.perf_counter() - t0:.1f} s")
+    worst, dead_cpu, dead_card = grad_check(torch, trainers["cpu"].model,
+                                            trainers["cuda"].model)
+    want_dead = {n for n, _ in trainers["cpu"].model.named_parameters() if DEAD.search(n)}
+    moved = max((p.detach().cpu() - q.detach()).abs().max().item() for p, q in zip(
+        trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters()))
+    loss_rel = abs(step_loss["cuda"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+    print(f"[train] card vs CPU: |loss| rel {loss_rel:.3e}, "
+          f"gradients {worst:.3f} of the tolerance, {len(dead_card)} parameters "
+          f"with no gradient, max |param card - CPU| after Adam {moved:.3e} "
+          f"({moved / TRAIN_LR:.3f} lr), {RANK1} launches {step_launches}")
+    check(loss_rel <= TRAIN_LOSS_RTOL, "train-step loss: card and CPU disagree")
+    check(worst <= 1.0, "train-step gradients: card and CPU disagree")
+    check(dead_cpu == dead_card == want_dead and len(want_dead) == 38,
+          f"dead parameters: CPU {sorted(dead_cpu ^ want_dead)}, card "
+          f"{sorted(dead_card ^ want_dead)} differ from the 38 declared-unused")
+    check(moved <= 2.05 * TRAIN_LR, "Adam updates: card and CPU differ by more than 2.05 lr")
+    check(step_launches == 2 * TRAIN_L, f"{RANK1} launched {step_launches} times "
+          f"in a step of T={TRAIN_L}, want {2 * TRAIN_L}")
+    del trainers
+
+    # 7c. the train path: the trainer in process, a step with the MFCC front
+    #     end, then the train and predict CLIs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        feature_path = generate_iemocap_pickles(str(tmp / "pickles"), seed=PREDICT_SEED,
+                                                with_wav=True)
+        train_loader, _, test_loader = get_loaders(
+            feature_path, valid=0.2, batch_size=TRAIN_B, seed=PREDICT_SEED)
+        trainer = ModelTrainer(seed=PREDICT_SEED, res_csv_path=str(tmp / "res.csv"))
+        steps_T = []
+
+        def recording(loader):  # the padded T of every train step
+            for b in loader:
+                steps_T.append(b["qmask"].shape[0])
+                yield b
+
+        reset_launches()
+        t0 = time.perf_counter()
+        history = []
+        for epoch in (1, 2):
+            lr, loss = trainer.train_network(epoch, recording(train_loader))
+            acc, f1, _ = trainer.eval_network(test_loader)
+            history.append((loss, acc, f1))
+        torch.cuda.synchronize()
+        train_launches = dict(LAUNCHES)
+        print(f"[train] ModelTrainer, 2 epochs, {len(steps_T)} steps in all at batch "
+              f"{TRAIN_B} (T {steps_T}), an eval after each: "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"(loss, acc, f1) {history}, launches {train_launches}")
+        check(all(math.isfinite(v) for h in history for v in h), "non-finite train loss")
+        check(train_launches.get(RANK1, 0) == 2 * sum(steps_T),
+              f"{RANK1} launches {train_launches.get(RANK1)}, want 2 per step a T")
+        check(train_launches.get(NAME, 0) == 2 * len(test_loader),
+              f"{NAME} launches {train_launches.get(NAME)}, want one an eval batch")
+
+        wav_trainer = ModelTrainer(seed=0, audio_frontend="mfcc")
+        wav_batch_train = next(iter(get_loaders(
+            feature_path, valid=0.2, batch_size=TRAIN_B, seed=PREDICT_SEED,
+            wav_path="auto")[0]))
+        reset_launches()
+        wav_loss = wav_trainer._train_step_impl(wav_batch_train, TRAIN_LR).item()
+        torch.cuda.synchronize()
+        wav_train_launches = dict(LAUNCHES)
+        print(f"[train] one step with the MFCC front end: loss {wav_loss:.5f}, "
+              f"launches {wav_train_launches}")
+        check(math.isfinite(wav_loss) and wav_train_launches.get(MFCC, 0) == 1,
+              f"the wav train step launched {wav_train_launches}, want {MFCC} once")
+        del trainer, wav_trainer
+
+        exp = tmp / "exp"
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "ser_tpu_torch.train", "--synthetic", "--epoch", "2",
+             "--batch_size", str(TRAIN_B), "--save_path", str(exp)],
+            cwd=tmp, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        print(f"[cli] train CLI, 2 epochs: exit {run.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(run.returncode == 0, f"train CLI exited {run.returncode}:\n{run.stderr[-3000:]}")
+        lines = score_lines(exp / "score.txt")
+        for line in lines:
+            print(f"[cli]   score.txt: {line}")
+        models = sorted(q.name for q in (exp / "model").iterdir())
+        params_csv = (tmp / "parameters.csv").read_text().splitlines()
+        check(len(lines) == 2 and models == ["model_0001.model", "model_0002.model"],
+              f"train CLI wrote {len(lines)} score lines and {models}")
+        check(params_csv[0] == "w,v,v1,v2" and len(params_csv) == 3,
+              f"parameters.csv: {params_csv}")
+        run = subprocess.run(
+            [sys.executable, "-m", "ser_tpu_torch.predict", "--synthetic",
+             "--initial_model", str(exp / "model" / "model_0002.model"),
+             "--res_csv", str(tmp / "predict.csv")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"predict CLI exited {run.returncode}:\n{run.stderr[-3000:]}")
+        rep = json.loads(run.stdout[run.stdout.index("{"):])
+        scored = re.search(r"Acc ([\d.]+), Fscore ([\d.]+)", lines[1]).groups()
+        predicted = (f"{rep['weighted_accuracy']:.2f}", f"{rep['weighted_f1']:.2f}")
+        print(f"[cli] predict on model_0002: Acc {predicted[0]}, F1 {predicted[1]}; "
+              f"score.txt epoch 2: Acc {scored[0]}, Fscore {scored[1]}")
+        check(predicted == scored, "the predict CLI's Acc/F1 differ from score.txt's")
+
+    # 8. train timings: the rank-1 kernel, a whole step with it and with the
+    #    plain version swapped in, the recurrence inside a step, a profile
+    *ins, g_out = rank1_inputs(torch, TRAIN_B, dev, seed=5)
+    rb = rank1_bound(TRAIN_B)
+    fwd = lambda: rank1_kernel._launch_fwd(*ins, rank1_seed, 3, 0.2)
+    bwd = lambda: rank1_kernel._launch_bwd(*ins, rank1_seed, 3, 0.2, g_out)
+    r1_fwd_ms, r1_bwd_ms = cuda_ms(torch, fwd), cuda_ms(torch, bwd)
+    r1_fwd_dev, r1_bwd_dev = cuda_graph_ms(torch, fwd), cuda_graph_ms(torch, bwd)
+
+    def plain_fwd_bwd():
+        xs = [x.clone().requires_grad_() for x in ins]
+        torch.autograd.grad(rank1_kernel.rank1_attention_ref(*xs, rank1_seed, 3, 0.2),
+                            xs, g_out)
+
+    r1_plain_fwd = cuda_ms(torch, lambda: rank1_kernel.rank1_attention_ref(
+        *ins, rank1_seed, 3, 0.2))
+    r1_plain_ms = cuda_ms(torch, plain_fwd_bwd)
+    rank1_ms = r1_fwd_ms + r1_bwd_ms
+    print(f"[time] {card} | {RANK1} [2, {TRAIN_B}, 128] p=0.2: forward {r1_fwd_ms:.4f} ms "
+          f"a wrapper call, {r1_fwd_dev:.4f} of device time; backward {r1_bwd_ms:.4f} "
+          f"and {r1_bwd_dev:.4f}; plain version forward {r1_plain_fwd:.4f}, forward "
+          f"and autograd backward {r1_plain_ms:.4f}; bound forward {rb['fwd'][0]:.5f} "
+          f"({rb['fwd'][2]}), backward {rb['bwd'][0]:.5f} ({rb['bwd'][2]}), both "
+          f"{rb['both'][0]:.5f} ({rb['both'][2]}); device time "
+          f"{100 * rb['both'][0] / (r1_fwd_dev + r1_bwd_dev):.1f}% of the bound")
+
+    spec_x = spec.make_inputs(train_batch)
+    step_trainer = ModelTrainer(seed=0, lr=TRAIN_LR)
+    step = lambda: step_trainer._train_step_impl(train_batch, TRAIN_LR)
+    step_ms, step_peak = {}, {}
+    kernel_fn = marn_onlysp.rank1_attention
+    for variant, fn in (("plain", rank1_kernel.rank1_attention_ref), ("kernel", kernel_fn),
+                        ("kernel", kernel_fn), ("plain", rank1_kernel.rank1_attention_ref)):
+        marn_onlysp.rank1_attention = fn
+        try:
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(torch, step, warmup=0, iters=5)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            marn_onlysp.rank1_attention = kernel_fn
+        step_ms.setdefault(variant, []).append(ms)
+        step_peak.setdefault(variant, []).append(peak)
+    print(f"[time] {card} | train step [{TRAIN_L}, {TRAIN_B}] (median of 5 after one "
+          f"warm-up, in turns plain, kernel, kernel, plain): kernel {step_ms['kernel']} ms, peak "
+          f"{step_peak['kernel']} GiB; plain version {step_ms['plain']} ms, peak "
+          f"{step_peak['plain']} GiB")
+
+    # the recurrence's share: its forward and its backward inside a step,
+    # with the inputs cut from the graph so the backward stops there
+    model = step_trainer.model.train()
+    xt, qt, ut = (torch.as_tensor(a, device=dev) for a in spec_x)
+    gen = step_trainer.generator
+    rec_seqs, rec_consts = model.recurrence_inputs(xt, qt, ut, gen)[:2]
+    rec_seqs = [t.detach().requires_grad_() for t in rec_seqs[:3]] + [rec_seqs[3].detach()]
+    rec_consts = [t.detach().requires_grad_() for t in rec_consts]
+    run_rec = lambda: marn_onlysp.train_recurrence(rec_seqs, rec_consts, gen)
+    rec_fwd_ms = cuda_ms(torch, run_rec, warmup=2, iters=5)
+    ys = run_rec()
+    gy = torch.randn_like(ys)
+    rec_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        ys, rec_seqs[:3] + rec_consts, gy, retain_graph=True), warmup=1, iters=5)
+    print(f"[time] {card} | the train recurrence at [{TRAIN_L}, {TRAIN_B}]: forward "
+          f"{rec_fwd_ms:.4f} ms, backward {rec_bwd_ms:.4f} ms, "
+          f"{100 * (rec_fwd_ms + rec_bwd_ms) / step_ms['kernel'][0]:.1f}% of a step")
+    del ys, rec_seqs, rec_consts
+
+    wall_ms, busy_ms, events = device_profile(torch, step, 1)
+    n_kernels = sum(e.count for e in events if "Memcpy" not in e.key
+                    and "Memset" not in e.key)
+    print(f"[profile] {card} | train step [{TRAIN_L}, {TRAIN_B}], one step: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{n_kernels:.0f} kernel launches a step")
+    split = {RANK1: 0.0, "gemm": 0.0, "copies": 0.0, "rest": 0.0}
+    for e in events:
+        key = (RANK1 if "rank1_" in e.key else "copies" if "Memcpy" in e.key
+               or "Memset" in e.key else "gemm" if "gemm" in e.key.lower() else "rest")
+        split[key] += e.self_device_time_total / 1e3
+    print("[profile]   device ms/step: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        if e.self_device_time_total > 0:
+            print(f"[profile]   {e.self_device_time_total / 1e3:9.4f} "
+                  f"ms/step x{e.count:<5d} {e.key[:90]}")
+
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
         "source": "ser_tpu_torch/csrc/lsthm_onlysp.cu",
@@ -576,7 +1018,13 @@ def main() -> int:
         "replaces": "ser_tpu/ops/pallas/mfcc.py:152",
         "launches": wav_launches[MFCC], "max_abs_err": mfcc_err,
         "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound_ms,
-        "bound_by": mfcc_bound_by, "library_ms": None}]}))
+        "bound_by": mfcc_bound_by, "library_ms": None}, {
+        "name": RANK1, "route": "cuda",
+        "source": "ser_tpu_torch/csrc/rank1_attention.cu",
+        "replaces": "ser_tpu/ops/attention.py:41",
+        "launches": train_launches[RANK1], "max_abs_err": rank1_err,
+        "ms": rank1_ms, "plain_ms": r1_plain_ms, "bound_ms": rb["both"][0],
+        "bound_by": rb["both"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,13 +3,16 @@
 
 The valid split is the first ``valid`` fraction of the train set's
 unshuffled index order; train and valid iterate shuffled, test in order.
-Loaders yield padded batch dicts (``collate.py``). The pipeline is
-synchronous numpy on the host.
+Loaders yield padded batch dicts (``collate.py``), assembled with numpy on
+the host; ``PrefetchLoader`` keeps a few ready in a background thread while
+the device computes.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 
 import numpy as np
 
@@ -42,6 +45,61 @@ class EpochLoader:
             items = [self.dataset[int(i)]
                      for i in order[start:start + self.batch_size]]
             yield collate(items, pad_batch=self.batch_size)
+
+
+class PrefetchLoader:
+    """Overlaps host batch assembly with device compute: a background thread
+    keeps up to ``depth`` collated batches ready (the reference gets the same
+    from ``DataLoader(num_workers=2)``). An exception in the thread is raised
+    in the consumer; a consumer that stops early leaves no thread blocked."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    def num_examples(self):
+        return self.loader.num_examples()
+
+    def __iter__(self):
+        q = queue.Queue(maxsize=self.depth)
+        done = object()
+        abandoned = threading.Event()
+
+        def put(item) -> bool:
+            """Queue ``item`` unless the consumer has gone; True if queued."""
+            while not abandoned.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+                put(done)
+            except BaseException as e:  # forwarded to the consumer, not hidden
+                put((done, e))
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, tuple) and len(item) == 2 and item[0] is done:
+                    raise item[1]
+                yield item
+            t.join()
+        finally:
+            abandoned.set()
 
 
 def get_train_valid_indices(n, valid=0.1):

@@ -1,4 +1,5 @@
-"""MARN1_onlysp, eval path (counterpart of ``ser_tpu/models/marn_onlysp.py``).
+"""MARN1_onlysp, eval and train forward (counterpart of
+``ser_tpu/models/marn_onlysp.py``).
 
 A bidirectional dialogue recurrence over per-utterance text and audio
 features: a GRU speaker memory, speaker-conditioned LSTHM1 cells per
@@ -9,10 +10,19 @@ that emits per-utterance log-probabilities.
 Parameter names and layouts are the reference's torch ones, so
 ``state_dict()`` keys equal those of the JAX package's
 ``export_state_dict(params, "MARN1_onlysp", prefix="")``. Parameters the
-reference declares and never uses are kept for parameter-count parity.
-Both recurrence directions run as one call of
+reference declares and never uses are kept for parameter-count parity; the
+forward never touches them, so their ``.grad`` stays None and Adam skips
+them. The dropout modules hold no parameters.
+
+In eval mode both recurrence directions run as one call of
 ``ops.kernels.lsthm.lsthm_onlysp_recurrence_bidir``: the CUDA kernel on the
-card, its plain version on the CPU.
+card, its plain version on the CPU. In train mode (``model.train()``, and a
+``torch.Generator`` on the model's device passed to ``forward``) the
+recurrence is a Python loop over T of the ported ops, both directions
+stacked on a leading axis (``_train_step_dir`` under the JAX package's
+``_fused_directions``), with dropout 0.5 on h_s, h_l and h_a and the rank-1
+attention's train form ``ops.kernels.rank1.rank1_attention``: the CUDA
+kernel on the card, with its own backward; the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -22,11 +32,12 @@ from torch import nn
 
 from ser_tpu_torch.ops.attention import (CrossAttentionReSeq,
                                          CrossAttentionSeq, Rank1Weights)
-from ser_tpu_torch.ops.cells import LSTHM, RNNCellWeights
+from ser_tpu_torch.ops.cells import LSTHM, RNNCellWeights, gru_step, lsthm_gates
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.lsthm import lsthm_onlysp_recurrence_bidir
-from ser_tpu_torch.ops.layers import TorchLinear
-from ser_tpu_torch.ops.masking import reverse_seq
+from ser_tpu_torch.ops.kernels.rank1 import rank1_attention
+from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout
+from ser_tpu_torch.ops.masking import reverse_seq, scatter_parties, select_parties
 
 
 class MARNCellOnlySP(nn.Module):
@@ -69,6 +80,43 @@ class MARNCellOnlySP(nn.Module):
         return seqs, consts
 
 
+def train_recurrence(seqs, consts, generator: torch.Generator,
+                     dropout_rate: float = 0.5, attn_dropout: float = 0.2
+                     ) -> torch.Tensor:
+    """Both directions of the train-mode recurrence, differentiable.
+
+    ``seqs`` and ``consts`` are the eval kernel's contract (``[T, 2, B, .]``
+    and ``[2, .]``); returns ``[T, 2, B, 4H]`` = ``[h_l | h_a | z | h_s]``.
+    A step draws three dropout masks from ``generator`` and the rank-1
+    attention's mask from one int32 seed per call, also drawn from it on its
+    device, so drawing costs the host no sync."""
+    xl_proj, xa_proj, gru_x, qmask = seqs
+    K_l, b_l, K_a, b_a, gWhh, gbhh, wq, wk = consts
+    b_l, b_a, gbhh = b_l[:, None], b_a[:, None], gbhh[:, None]
+    T, _, B = xl_proj.shape[:3]
+    H = K_l.shape[-1] // 4
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    zeros = lambda *s: xl_proj.new_zeros(s)
+    h_l, c_l, h_a, c_a, z = (zeros(2, B, H) for _ in range(5))
+    q = zeros(2, B, qmask.shape[-1], gWhh.shape[-2])
+    drop = lambda x: dropout(x, dropout_rate, generator)
+    ys = []
+    for t in range(T):
+        qm = qmask[t]
+        h_s = drop(gru_step(gru_x[t], select_parties(q, qm), gWhh, gbhh))
+        q = scatter_parties(q, qm, h_s)
+        c_l, h_l = lsthm_gates(
+            xl_proj[t] + torch.matmul(torch.cat([h_l, z, h_s], -1), K_l) + b_l, c_l)
+        h_l = drop(h_l)
+        c_a, h_a = lsthm_gates(
+            xa_proj[t] + torch.matmul(torch.cat([h_a, z, h_s], -1), K_a) + b_a, c_a)
+        h_a = drop(h_a)
+        z = rank1_attention(c_l, c_a, wq, wk, seed, t, attn_dropout)
+        ys.append(torch.cat([h_l, h_a, z, h_s], -1))
+    return torch.stack(ys)
+
+
 class MARN1OnlySP(nn.Module):
     """MARN1_onlysp. Input x is time-major ``[L, B, 1124]`` = RoBERTa-1024
     text | audio-100, qmask ``[L, B, 2]``, umask ``[B, L]``. Returns
@@ -77,6 +125,8 @@ class MARN1OnlySP(nn.Module):
 
     d_r = 1024
     d_m = 100
+    dropout_rate = 0.5  # h_s, h_l, h_a in the recurrence
+    attn_dropout = 0.2  # the per-step rank-1 attention
 
     def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
         super().__init__()
@@ -93,22 +143,25 @@ class MARN1OnlySP(nn.Module):
         self.crossatt_a2l = CrossAttentionSeq()
         self.crossatt_l2a_1 = CrossAttentionReSeq()
         self.crossatt_a2l_1 = CrossAttentionReSeq()
+        self.dropout_rec = Dropout(0.5)
+        self.dropout_rec_b = Dropout(0.5)
         d_feat = 4 * 128 * 2 + 2 * 128
-        # index 2 is the reference's Dropout(0.5), the identity in eval
+        # index 2 is the reference's Dropout(0.5) (nn_out_drop)
         self.nn_out = nn.Sequential(
-            TorchLinear(d_feat, 32, generator=g), nn.ReLU(), nn.Identity(),
+            TorchLinear(d_feat, 32, generator=g), nn.ReLU(), Dropout(0.5),
             TorchLinear(32, n_classes, generator=g))
         self.linear = TorchLinear(d_feat, 32, generator=g)  # unused (ref :229)
 
-    def recurrence_inputs(self, x, qmask, umask):
+    def recurrence_inputs(self, x, qmask, umask, generator=None):
         """Everything before the recurrence: ``(seqs, consts, x_l, x_a)``
         with seqs and consts in the kernel's contract, both directions
         stacked on axis 1 and 0, and x_l, x_a the encoded ``[L, B, 100]``."""
+        g = generator
         x_l = self.linear_in(x[:, :, :self.d_r].transpose(0, 1))  # [B, L, 100]
         x_a = x[:, :, self.d_r:self.d_r + self.d_m].transpose(0, 1)
         # The reference applies the same encoder layer twice (shared weights).
-        x_l = self.encoder_l(self.encoder_l(x_l)).transpose(0, 1)  # [L, B, 100]
-        x_a = self.encoder_a(self.encoder_a(x_a)).transpose(0, 1)
+        x_l = self.encoder_l(self.encoder_l(x_l, g), g).transpose(0, 1)  # [L, B, 100]
+        x_a = self.encoder_a(self.encoder_a(x_a, g), g).transpose(0, 1)
 
         seqs_f, consts_f = self.marn_cell_f.gather(x_l, x_a, qmask)
         seqs_b, consts_b = self.marn_cell_b.gather(
@@ -120,20 +173,30 @@ class MARN1OnlySP(nn.Module):
                        for f, b in zip(consts_f, consts_b))
         return seqs, consts, x_l, x_a
 
-    def forward(self, x, qmask, umask):
+    def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
+        """In train mode every dropout draws from ``generator``, which must
+        be given and lie on the model's device; in eval it is not used."""
+        if self.training and generator is None:
+            raise RuntimeError("MARN1OnlySP in train mode needs a torch.Generator "
+                             "for its dropouts; call .eval() to serve")
+        g = generator if self.training else None
+        seqs, consts, x_l, x_a = self.recurrence_inputs(x, qmask, umask, g)
         if self.training:
-            raise RuntimeError("MARN1OnlySP is ported for eval only; call .eval()")
-        seqs, consts, x_l, x_a = self.recurrence_inputs(x, qmask, umask)
-        ys = lsthm_onlysp_recurrence_bidir(seqs, consts)  # [L, 2, B, 512]
-        h = torch.cat([ys[:, 0], reverse_seq(ys[:, 1], umask)], -1)
+            ys = train_recurrence(seqs, consts, g, self.dropout_rate,
+                                  self.attn_dropout)
+        else:
+            ys = lsthm_onlysp_recurrence_bidir(seqs, consts)  # [L, 2, B, 512]
+        h = torch.cat([self.dropout_rec(ys[:, 0], g),
+                       self.dropout_rec_b(reverse_seq(ys[:, 1], umask), g)], -1)
 
         w, v = self.w * x_l, self.v * x_a
-        attn1 = self.crossatt_l2a(w, v)
-        attn2 = self.crossatt_a2l(v, w)
-        attn1 = self.crossatt_l2a_1(v, self.v1 * attn1)
-        attn2 = self.crossatt_a2l_1(w, self.v2 * attn2)
+        attn1 = self.crossatt_l2a(w, v, g)
+        attn2 = self.crossatt_a2l(v, w, g)
+        attn1 = self.crossatt_l2a_1(v, self.v1 * attn1, g)
+        attn2 = self.crossatt_a2l_1(w, self.v2 * attn2, g)
 
-        out = self.nn_out(torch.cat([h, attn1, attn2], -1))  # [L, B, C]
+        head, relu, head_drop, out_layer = self.nn_out
+        out = out_layer(head_drop(relu(head(torch.cat([h, attn1, attn2], -1))), g))
         logp = torch.log_softmax(out, dim=2)
         logp = logp.transpose(0, 1).reshape(-1, self.n_classes)  # [B*L, C]
         return logp, x_l, x_a

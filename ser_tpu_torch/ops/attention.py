@@ -1,12 +1,14 @@
-"""Cross-modal attention in eval form (counterpart of
-``ser_tpu/ops/attention.py``): the per-step rank-1 attention and the two
-sequence cross attentions of the MARN1 head. All weights are ones at init,
-as in the reference."""
+"""Cross-modal attention (counterpart of ``ser_tpu/ops/attention.py``): the
+per-step rank-1 attention in eval and train form, and the two sequence cross
+attentions of the MARN1 head with their train-mode dropout (rate 0.2) on the
+attention map. All weights are ones at init, as in the reference."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ser_tpu_torch.ops.layers import Dropout
 
 
 def rank1_cross_attention(x1: torch.Tensor, x2: torch.Tensor,
@@ -27,6 +29,31 @@ def rank1_cross_attention(x1: torch.Tensor, x2: torch.Tensor,
                     alpha * wk.amin(-1, keepdim=True))
     e = torch.exp(alpha[..., :, None] * wk[..., None, :] - m[..., None])
     return (e * x2[..., None, :]).sum(-1) / e.sum(-1)
+
+
+def rank1_cross_attention_train(x1: torch.Tensor, x2: torch.Tensor,
+                                wq: torch.Tensor, wk: torch.Tensor,
+                                keep: torch.Tensor | None, p: float
+                                ) -> torch.Tensor:
+    """Train form with attention dropout, differentiable by autograd
+    (``_rank1_fused_impl``): the normaliser ``den = sum_k e`` is taken
+    before dropout, ``u = where(keep, e / (1 - p), 0)`` and
+    ``z = sum_k u * x2 / den``. The row max ``m`` is detached, as JAX's
+    ``stop_gradient``: the shift cancels in exact arithmetic, not in floats.
+
+    x1, x2 ``[..., B, D]``; wq, wk ``[..., D]``; ``keep`` a boolean mask
+    ``[..., B, D, D]`` (i, k) or None for no dropout. Returns ``[..., B, D]``.
+    """
+    D = x1.shape[-1]
+    wq, wk = wq[..., None, :], wk[..., None, :]
+    s = (x2 * wq).sum(-1, keepdim=True) * (1.0 / D ** 0.5)
+    alpha = x1 * s
+    m = torch.where(alpha > 0, alpha * wk.amax(-1, keepdim=True),
+                    alpha * wk.amin(-1, keepdim=True)).detach()
+    e = torch.exp(alpha[..., :, None] * wk[..., None, :] - m[..., None])
+    den = e.sum(-1)
+    u = e if keep is None else torch.where(keep, e / (1.0 - p), 0.0)
+    return (u * x2[..., None, :]).sum(-1) / den
 
 
 class Rank1Weights(nn.Module):
@@ -53,14 +80,17 @@ class CrossAttentionSeq(nn.Module):
         self.Wq = nn.Parameter(torch.ones(dh, dk))
         self.Wk = nn.Parameter(torch.ones(d_kv_in, dk))
         self.Wv = nn.Parameter(torch.ones(d_kv_in, dv))
+        self.drop = Dropout(0.2)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x1b, x2b = x1.transpose(0, 1), x2.transpose(0, 1)
         q = torch.matmul(x1b, self.Wq)
         k = torch.matmul(x2b, self.Wk)
         v = torch.matmul(x2b, self.Wv)
         attn = torch.softmax(
             torch.einsum("bqd,bkd->bqk", q / self.dk ** 0.5, k), dim=-1)
+        attn = self.drop(attn, generator)
         return torch.einsum("bqk,bkd->bqd", attn, v).transpose(0, 1)
 
 

@@ -1,13 +1,15 @@
 """Transformer encoder block, ``mha`` branch (counterpart of
-``ser_tpu/ops/encoder.py``). Batch-first ``[B, L, d_model]``; eval only, so
-the dropouts are the identity and have no module."""
+``ser_tpu/ops/encoder.py``). Batch-first ``[B, L, d_model]``. In train mode
+the reference's three dropouts (rate 0.1: the attention map, after ``fc``,
+in the FFN) draw from the generator passed to ``forward``; in eval they are
+the identity."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ser_tpu_torch.ops.layers import TorchLayerNorm, TorchLinear
+from ser_tpu_torch.ops.layers import Dropout, TorchLayerNorm, TorchLinear
 
 
 class MultiHeadAttention(nn.Module):
@@ -15,7 +17,7 @@ class MultiHeadAttention(nn.Module):
     residual and LayerNorm. No mask: MARN1_onlysp passes none."""
 
     def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout: float = 0.1):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         lin = lambda i, o: TorchLinear(i, o, bias=False, generator=generator)
@@ -24,8 +26,11 @@ class MultiHeadAttention(nn.Module):
         self.w_vs = lin(d_model, n_head * d_v)
         self.fc = lin(n_head * d_v, d_model)
         self.layer_norm = TorchLayerNorm(d_model)
+        self.attn_dropout = Dropout(dropout)
+        self.out_dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         B, L = x.shape[:2]
         n = self.n_head
         q = self.w_qs(x).reshape(B, L, n, self.d_k)
@@ -33,23 +38,29 @@ class MultiHeadAttention(nn.Module):
         v = self.w_vs(x).reshape(B, L, n, self.d_v)
         attn = torch.softmax(
             torch.einsum("bqnd,bknd->bnqk", q / self.d_k ** 0.5, k), dim=-1)
+        attn = self.attn_dropout(attn, generator)
         out = torch.einsum("bnqk,bknd->bqnd", attn, v).reshape(B, L, -1)
-        return self.layer_norm(self.fc(out) + x)
+        out = self.out_dropout(self.fc(out), generator)
+        return self.layer_norm(out + x)
 
 
 class PositionwiseFeedForward(nn.Module):
     """Two-layer FFN with residual and LayerNorm. ``fc`` is declared and never
     used, as in the reference, for parameter-count parity."""
 
-    def __init__(self, d_in: int, d_hid: int, *, generator: torch.Generator):
+    def __init__(self, d_in: int, d_hid: int, *, generator: torch.Generator,
+                 dropout: float = 0.1):
         super().__init__()
         self.w_1 = TorchLinear(d_in, d_hid, generator=generator)
         self.w_2 = TorchLinear(d_hid, d_in, generator=generator)
         self.layer_norm = TorchLayerNorm(d_in)
         self.fc = TorchLinear(d_in, 100, generator=generator)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer_norm(self.w_2(torch.relu(self.w_1(x))) + x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.drop(self.w_2(torch.relu(self.w_1(x))), generator)
+        return self.layer_norm(h + x)
 
 
 class EncoderLayer(nn.Module):
@@ -63,5 +74,6 @@ class EncoderLayer(nn.Module):
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner,
                                                generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pos_ffn(self.slf_attn(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.pos_ffn(self.slf_attn(x, generator), generator)

@@ -1,6 +1,10 @@
-"""Linear and LayerNorm with the JAX package's numerics
-(counterpart of ``ser_tpu/ops/layers.py``). Dropout is the identity in eval
-and has no module here."""
+"""Linear, LayerNorm and inverted dropout with the JAX package's numerics
+(counterpart of ``ser_tpu/ops/layers.py``).
+
+Dropout draws its keep mask from an explicit ``torch.Generator`` that the
+caller owns (on the card a CUDA generator), never from the global one, so a
+train step is reproducible from the trainer's seed. ``Dropout`` holds no
+parameters: the modules that use it keep the reference's state-dict keys."""
 
 from __future__ import annotations
 
@@ -43,3 +47,34 @@ class TorchLayerNorm(nn.Module):
         mean = x.mean(-1, keepdim=True)
         var = (x - mean).square().mean(-1, keepdim=True)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None
+            ) -> torch.Tensor:
+    """Inverted dropout, ``where(keep, x / (1 - p), 0)`` with ``keep`` drawn
+    Bernoulli(1 - p) from ``generator`` (on ``x``'s device). Rate 0 or no
+    generator (eval) is the identity."""
+    if p == 0.0 or generator is None:
+        return x
+    keep = 1.0 - p
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator).bool()
+    return torch.where(mask, x / keep, 0.0)
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout(p)`` with an explicit generator: in train mode
+    ``forward(x, generator)`` drops from ``generator``; in eval mode, or
+    given no generator, it is the identity. ``MARN1OnlySP.forward`` refuses
+    train mode without a generator, so a train step always drops."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return dropout(x, self.p, generator) if self.training else x
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

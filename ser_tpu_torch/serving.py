@@ -36,6 +36,7 @@ class Predictor:
         model = self.spec.build(n_classes, generator(seed))
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
+        # eval mode here; a trainer that shares the model switches it
         self.model = model.to(self.device).eval()
         self.frontend = make_frontend(audio_frontend)
         self.n_requests = 0
@@ -56,22 +57,26 @@ class Predictor:
         with torch.inference_mode():
             return self._answer(*(self._tensor(a) for a in (x, qmask, umask)))
 
+    def batch_inputs(self, batch):
+        """``(x, qmask, umask)`` on the device from one collated batch
+        (``data.collate``), numpy arrays. With an audio front end and a
+        ``wav`` field, the waveforms (and ``wav_len``) are copied to the
+        device and the front end computes ``acouf`` there; otherwise the
+        batch's ``acouf`` is used. The text views are averaged on the host,
+        so one of them is copied, not four. The caller picks the grad mode."""
+        textf = self._tensor(self.spec.text_features(batch))
+        if self.frontend is not None and "wav" in batch:
+            wav_len = batch.get("wav_len")
+            acouf = self.frontend(
+                self._tensor(batch["wav"]),
+                None if wav_len is None else self._tensor(wav_len, torch.int32))
+        else:
+            acouf = self._tensor(batch["acouf"])
+        return (self.spec.join_inputs(textf, acouf),
+                self._tensor(batch["qmask"]), self._tensor(batch["umask"]))
+
     def predict_batch(self, batch):
-        """One collated batch (``data.collate``), numpy arrays. With an
-        audio front end and a ``wav`` field, the waveforms (and ``wav_len``)
-        are copied to the device and the front end computes ``acouf``
-        there; otherwise the batch's ``acouf`` is used. The text views are
-        averaged on the host, so one of them is copied, not four. Returns
-        what ``predict`` returns."""
+        """One collated batch, as ``batch_inputs`` reads it. Returns what
+        ``predict`` returns."""
         with torch.inference_mode():
-            textf = self._tensor(self.spec.text_features(batch))
-            if self.frontend is not None and "wav" in batch:
-                wav_len = batch.get("wav_len")
-                acouf = self.frontend(
-                    self._tensor(batch["wav"]),
-                    None if wav_len is None else self._tensor(wav_len, torch.int32))
-            else:
-                acouf = self._tensor(batch["acouf"])
-            return self._answer(self.spec.join_inputs(textf, acouf),
-                                self._tensor(batch["qmask"]),
-                                self._tensor(batch["umask"]))
+            return self._answer(*self.batch_inputs(batch))

@@ -1,0 +1,205 @@
+"""Train CLI of the port (counterpart of the JAX package's ``train.py``).
+
+    python -m ser_tpu_torch.train --synthetic [--epoch 80] [--batch_size 80]
+    python -m ser_tpu_torch.train --feature_path /path/to/features/
+    python -m ser_tpu_torch.train --eval True --initial_model CKPT.npz ...
+
+The flags are ``train.py``'s, plus ``--device`` (default ``cuda``; without
+CUDA it raises unless given ``--device cpu``). The epoch loop is the same:
+train, then every ``--test_step`` epochs save ``model/model_%04d.model``
+(the JAX package's ``.npz``), eval on the test split (``res.csv``) and append
+a line to ``score.txt`` with the best F1 so far; at the end the fusion
+weights of each eval go to ``parameters.csv`` in the working directory. The
+flags the port cannot honour yet are refused with the ROADMAP item that
+queues them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ser_tpu_torch.data.loaders import PrefetchLoader, get_loaders
+from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
+from ser_tpu_torch.device import resolve_device
+from ser_tpu_torch.models.registry import get_model_spec
+from ser_tpu_torch.train.trainer import ModelTrainer
+from ser_tpu_torch.utils.paths import init_args
+from ser_tpu_torch.utils.seeding import seed_everything
+
+# flag -> (is it set to something the port lacks, why, ROADMAP item)
+_QUEUED = {
+    "save_state": (lambda v: v, "exact-resume train state", "A.7"),
+    "resume": (lambda v: v != "", "resuming from a train state", "A.7"),
+    "compute_dtype": (lambda v: v != "f32", "bf16 mixed precision", "A.9"),
+    "dp": (lambda v: v, "data parallelism", "A.14"),
+    "tp": (lambda v: v > 1, "tensor parallelism", "A.14"),
+    "infonce": (lambda v: v > 0, "the InfoNCE and extra losses", "A.12"),
+    "encoder_attention": (lambda v: v != "mha", "the attention zoo", "A.16"),
+    "dataset": (lambda v: v == "MELD", "MELD", "A.8"),
+    "debug_nans": (lambda v: v, "NaN checks", "A.16"),
+}
+
+
+def check_supported(args) -> None:
+    """Raise on a flag the port cannot honour yet, naming its ROADMAP item."""
+    for flag, (is_set, what, item) in _QUEUED.items():
+        value = getattr(args, flag)
+        if is_set(value):
+            raise NotImplementedError(
+                f"--{flag} {value}: the port has no {what} yet; queued "
+                f"(ROADMAP {item})")
+    try:
+        get_model_spec(args.model)
+    except KeyError as e:
+        raise KeyError(f"{e.args[0]}; the rest of the zoo is queued "
+                       "(ROADMAP A.10-A.12)") from None
+
+
+def write_parameters_csv(path, columns: dict) -> None:
+    """One column a fusion weight, one row an eval, as pandas' ``to_csv``
+    writes floats."""
+    names = list(columns)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(names)
+        for row in zip(*(columns[n] for n in names)):
+            w.writerow([repr(float(v)) for v in row])
+
+
+def main(args):
+    check_supported(args)
+    resolve_device(args.device)  # before any file is written
+    seed_everything(args.seed)
+    init_args(args)
+    use_frontend = args.audio_frontend not in (None, "", "none")
+    tmp = None
+    if args.synthetic:
+        tmp = tempfile.TemporaryDirectory(prefix="ser_tpu_torch_synth_")
+        args.feature_path = generate_iemocap_pickles(
+            tmp.name, seed=args.seed, with_wav=use_frontend)
+    try:
+        _run(args, use_frontend)
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+
+def _run(args, use_frontend):
+    train_loader, _, test_loader = get_loaders(
+        args.feature_path, dataset=args.dataset, valid=0.2,
+        batch_size=args.batch_size, seed=args.seed,
+        roberta_path=args.roberta_path,
+        wav_path="auto" if use_frontend else None)
+    if args.num_workers > 0:
+        train_loader = PrefetchLoader(train_loader)
+        test_loader = PrefetchLoader(test_loader)
+    if args.eval:
+        trainer = ModelTrainer(**vars(args))
+        print("Model %s loaded from previous state!" % args.initial_model)
+        trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
+        if args.export_torch:
+            trainer.export_parameters_torch(args.export_torch)
+            print(f"Exported reference-format checkpoint: {args.export_torch}")
+        acc, fscore, _ = trainer.eval_network(test_loader)
+        print(f"Acc {acc:.2f}, Fscore {fscore:.2f}")
+        return
+
+    trainer = ModelTrainer(**vars(args))
+    if args.initial_model != "":
+        print("Model %s loaded from previous state!" % args.initial_model)
+        trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
+
+    fscores = []
+    w_dic = defaultdict(list)
+    with open(args.score_save_path, "a+") as score_file:
+        score_file.write(f"Model: {args.model} \nDataset : {args.dataset}\n"
+                         + "-" * 20 + "\n")
+        for epoch in range(1, args.epoch + 1):
+            print("-" * 10, f"epoch {epoch} training", "-" * 10)
+            lr, loss = trainer.train_network(epoch, train_loader)
+            if epoch % args.test_step:
+                continue
+            trainer.save_parameters(args.model_save_path + "/model_%04d.model" % epoch)
+            acc, fscore, _ = trainer.eval_network(test_loader)
+            for k, v in trainer.fusion_weights().items():
+                w_dic[k].append(v)
+            fscores.append(fscore)
+            best_ep = (int(np.argmax(np.array(fscores))) + 1) * args.test_step
+            line = (f"epoch {epoch}, Loss {loss:.2f}, Lr {lr:.6f}, "
+                    f"Acc {acc:.2f}, Fscore {fscore:.2f}, "
+                    f"Best Fscore: {max(fscores):.2f} [{best_ep}epoch]")
+            print(time.strftime("%Y-%m-%d %H:%M:%S"), line)
+            score_file.write(time.strftime("%Y-%m-%d %H:%M:%S") + f" —— {line}\n")
+            score_file.flush()
+        if args.export_torch:
+            trainer.export_parameters_torch(args.export_torch)
+            print(f"Exported reference-format checkpoint: {args.export_torch}")
+        score_file.write("\n")
+    write_parameters_csv("parameters.csv", w_dic)
+
+
+def parser_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="SpeakerEmotionRecognition train (PyTorch/CUDA port)")
+    p.add_argument("--epoch", type=int, default=80)
+    p.add_argument("--batch_size", type=int, default=80)
+    p.add_argument("--num_workers", type=int, default=2)
+    p.add_argument("--test_step", type=int, default=1)
+    p.add_argument("--eval", type=bool, default=False)
+    p.add_argument("--initial_model", type=str, default="")
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--lr_decay", type=float, default=0.98)
+    p.add_argument("--seed", type=int, default=111)
+    p.add_argument("--loss", type=str, default="CrossEntropy",
+                   help="CrossEntropy / NLL")
+    p.add_argument("--feature_path", type=str,
+                   default="/home/workspaces/SMM22/features/")
+    p.add_argument("--roberta_path", type=str, default=None)
+    p.add_argument("--dataset", type=str, default="IEMOCAP")
+    p.add_argument("--save_path", type=str, default="exps/MARN1_onlysp")
+    p.add_argument("--model", type=str, default="MARN1_onlysp")
+    p.add_argument("--n_classes", type=int, default=6)
+    p.add_argument("--gpu", type=int, default=0,
+                   help="kept for CLI parity; the device is --device")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate synthetic IEMOCAP-shaped data")
+    p.add_argument("--dp", action="store_true")
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--save_state", action="store_true")
+    p.add_argument("--resume", type=str, default="")
+    p.add_argument("--export_torch", type=str, default="",
+                   help="also write the parameters as a reference-layout "
+                        "torch state dict")
+    p.add_argument("--torch_format", action="store_true",
+                   help="--initial_model is a reference torch state dict")
+    p.add_argument("--infonce", type=float, default=0.0)
+    p.add_argument("--encoder_attention", type=str, default="mha")
+    p.add_argument("--compute_dtype", type=str, default="f32",
+                   choices=["f32", "bf16"])
+    p.add_argument("--audio_frontend", type=str, default="none",
+                   help="none / mfcc: compute the 100-d audio slot on the "
+                        "device from raw waveforms")
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+if __name__ == "__main__":
+    args = parser_args()
+    print("Python Version:", sys.version)
+    print("PyTorch Version:", torch.__version__)
+    print("Device:", args.device)
+    print("Model:", args.model)
+    print("Dataset", args.dataset)
+    print("Save path:", args.save_path)
+    st = time.time()
+    main(args)
+    print(f"training done, total {round(time.time() - st, 2)}s")

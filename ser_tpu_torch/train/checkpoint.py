@@ -1,6 +1,11 @@
-"""Tolerant checkpoint load (counterpart of
-``ser_tpu/train/checkpoint.py::load_parameters`` and, with
-``torch_format``, of ``ser_tpu/compat/torch_import.py``).
+"""Checkpoints in the JAX package's format: ``save_parameters`` and the
+tolerant ``load_parameters`` (counterparts of ``ser_tpu/train/checkpoint.py``
+and, with ``torch_format``, of ``ser_tpu/compat/torch_import.py``).
+
+``save_parameters`` writes the model's parameters as the JAX package's
+``.npz`` of flat flax names (``compat.from_jax.to_jax_params``), through a
+temporary file and ``os.replace``, so an interrupted save never truncates a
+checkpoint. A file written by either package loads in the other.
 
 The reference loads partially: a name the model does not have is skipped
 with a print, a shape mismatch is skipped with a print, and a leading
@@ -17,10 +22,13 @@ Parameters the file does not carry keep their current values.
 
 from __future__ import annotations
 
+import io
+import os
+
 import numpy as np
 import torch
 
-from ser_tpu_torch.compat.from_jax import from_jax_params
+from ser_tpu_torch.compat.from_jax import from_jax_params, to_jax_params
 
 _PREFIXES = ("module.", "module/", "model.", "model/")
 
@@ -49,6 +57,21 @@ def _place_torch(name, value, own):
         if cand in own:
             return cand, value.detach().to("cpu", torch.float32).contiguous()
     return None
+
+
+def save_parameters(model: torch.nn.Module, path) -> None:
+    """Write ``model``'s parameters to ``path`` as the JAX package's
+    ``save_parameters`` does (``np.savez`` of the flat names, atomically)."""
+    path = os.fspath(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    buf = io.BytesIO()
+    np.savez(buf, **to_jax_params(model.state_dict()))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 def load_parameters(model: torch.nn.Module, path, torch_format=False,

@@ -1,0 +1,106 @@
+"""ModelTrainer, the train and eval engine (counterpart of
+``ser_tpu/train/trainer.py``), with the reference's surface:
+
+- ``train_network(epoch, loader) -> (lr, avg_loss)``;
+- ``eval_network(loader) -> (acc, f1, {})``, writing ``res.csv``;
+- ``save_parameters`` / tolerant ``load_parameters`` and
+  ``export_parameters_torch``;
+- Adam with coupled decay 2e-5 and StepLR (``train/optim.py``).
+
+The model lives on one device (``cuda`` unless the caller asks for the CPU).
+A train step is eager PyTorch: the forward with every dropout drawn from the
+trainer's generator on that device, the masked loss, backward, and the Adam
+update. On the card the per-step rank-1 attention runs as its CUDA kernel,
+forward and backward. Eval runs the model in eval mode through the same
+``Predictor`` and loop as ``python -m ser_tpu_torch.predict``, so on the card
+it launches the recurrence kernel once a batch.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ser_tpu_torch.predict import eval_network, fusion_weights
+from ser_tpu_torch.serving import Predictor
+from ser_tpu_torch.train import checkpoint as ckpt
+from ser_tpu_torch.train.losses import masked_loss
+from ser_tpu_torch.train.optim import set_lr, step_lr, torch_adam
+
+
+class ModelTrainer:
+    def __init__(self, device=None, lr=1e-3, test_step=1, lr_decay=0.98,
+                 model="MARN1_onlysp", loss="CrossEntropy", n_classes=6,
+                 seed=111, weight_decay=2e-5, res_csv_path="res.csv",
+                 audio_frontend=None, **kwargs):
+        del kwargs  # the CLI passes all of its flags
+        self.predictor = Predictor(model, seed=seed, device=device,
+                                   n_classes=n_classes, audio_frontend=audio_frontend)
+        self.device = self.predictor.device
+        self.model = self.predictor.model
+        self.loss_kind = loss
+        self.res_csv_path = res_csv_path
+        # every dropout mask of a train step is drawn from this generator
+        self.generator = torch.Generator(self.device).manual_seed(int(seed))
+        n_params = sum(p.numel() for p in self.model.parameters())
+        print(time.strftime("%m-%d %H:%M:%S")
+              + " Model para number = %.2f" % (n_params / 1024 / 1024))
+        self.weight_decay = weight_decay
+        self.optimizer = torch_adam(self.model.parameters(), lr, weight_decay)
+        self.lr_at = step_lr(lr, lr_decay, test_step)
+
+    def _train_step_impl(self, batch, lr: float) -> torch.Tensor:
+        """One optimizer step on a collated numpy batch; returns the loss on
+        the device. Gradients are cleared to None first and stay in ``.grad``
+        after the step; a parameter the forward never touches has none, and
+        Adam skips it."""
+        self.model.train()
+        with torch.no_grad():  # the front end's features take no gradient
+            x, qmask, umask = self.predictor.batch_inputs(batch)
+        labels = torch.as_tensor(batch["label"], device=self.device).reshape(-1)
+        self.optimizer.zero_grad(set_to_none=True)
+        logp = self.model(x, qmask, umask, generator=self.generator)[0]
+        loss = masked_loss(logp, labels, umask, kind=self.loss_kind)
+        loss.backward()
+        set_lr(self.optimizer, lr)
+        self.optimizer.step()
+        return loss.detach()
+
+    def train_network(self, epoch, loader):
+        lr = self.lr_at(epoch)
+        losses, mask_sums = [], []
+        for batch in loader:
+            # the losses stay on the device until the epoch ends: a float()
+            # here would wait for every step
+            losses.append(self._train_step_impl(batch, lr))
+            mask_sums.append(float(np.sum(batch["umask"])))
+        losses = torch.stack(losses).cpu().numpy() if losses else []
+        avg_loss = round(float(np.sum([float(l) * m for l, m in zip(losses, mask_sums)])
+                               / np.sum(mask_sums)), 4)
+        return lr, avg_loss
+
+    def eval_network(self, loader):
+        self.model.eval()
+        acc, f1 = eval_network(self.predictor, loader, self.res_csv_path)
+        return acc, f1, {}
+
+    def fusion_weights(self):
+        return fusion_weights(self.model)
+
+    def save_parameters(self, path):
+        ckpt.save_parameters(self.model, path)
+
+    def load_parameters(self, path, torch_format=False):
+        ckpt.load_parameters(self.model, path, torch_format=torch_format)
+        # the reference checkpoints no optimizer state: Adam starts anew
+        self.optimizer = torch_adam(self.model.parameters(),
+                                    self.optimizer.param_groups[0]["lr"],
+                                    self.weight_decay)
+
+    def export_parameters_torch(self, path):
+        """``torch.save`` of the state dict, whose keys are the reference's:
+        the reference stack and ``load_parameters(torch_format=True)`` read it."""
+        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                   path)

@@ -6,18 +6,28 @@ Tolerances: the recurrence atol 1e-4 (another summation order over T serial
 steps); the MFCC kernel rtol 1e-5, atol 2e-4 (its spectrum comes from an FFT
 with the window applied first, the plain version's from dense products with
 the window folded into the DFT matrices; then 64-term DCT sums of values up
-to |log 1e-6| = 13.8).
+to |log 1e-6| = 13.8); the rank-1 attention kernel |Δ| <= 1e-5 + 1e-4·|plain|
+for z, dx1, dx2 and <= 1e-5·max|plain| + 1e-4·|plain| for dwq, dwk, which sum
+B·128 terms (128-term sums in another order, f32); a train step card against
+CPU with dropout off: the loss at rtol 1e-5, every gradient within 1e-3 of
+its tensor's largest plus 1e-6 of the step's largest (``tests/
+test_torch_train_step.py``'s contract against the JAX package).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ser_tpu_torch.data.loaders import get_loaders
+from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
 from ser_tpu_torch.device import disable_tf32
 from ser_tpu_torch.ops.kernels import LAUNCHES
 from ser_tpu_torch.ops.kernels import lsthm as tlsthm
 from ser_tpu_torch.ops.kernels import mfcc as tmfcc_kernel
+from ser_tpu_torch.ops.kernels import rank1 as trank1
+from ser_tpu_torch.ops.layers import Dropout
 from ser_tpu_torch.ops.mfcc import MFCCConfig, mfcc, mfcc_ref
+from ser_tpu_torch.train.trainer import ModelTrainer
 
 pytestmark = pytest.mark.cuda
 H = 128
@@ -199,3 +209,129 @@ def test_mfcc_kernel_refuses_bad_input(cuda):
         tmfcc_kernel.mfcc_kernel(x.t().contiguous().t(), cfg)
     with pytest.raises(ValueError, match="too short"):
         tmfcc_kernel.mfcc_kernel(x[:, :399].contiguous(), cfg)
+
+
+def _rank1_inputs(B, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(2.0 * rng.standard_normal((2, B, H))), t(0.5 * rng.standard_normal((2, B, H))),
+            t(1.0 + 0.1 * rng.standard_normal((2, H))),
+            t(1.0 + 0.3 * rng.standard_normal((2, H))),
+            t(rng.standard_normal((2, B, H))))
+
+
+def _rank1_run(fn, ins, g, seed, step, p):
+    xs = [x.clone().requires_grad_() for x in ins]
+    z = fn(*xs, seed, step, p)
+    grads = torch.autograd.grad(z, xs, g)
+    torch.cuda.synchronize()
+    return (z.detach(), *grads)
+
+
+@pytest.mark.parametrize("B", [1, 31, 80])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_rank1_kernel_matches_plain_version(cuda, B, p):
+    *ins, g = _rank1_inputs(B, cuda, seed=B)
+    seed = torch.tensor([123456789], dtype=torch.int32, device=cuda)
+    before = LAUNCHES[trank1.NAME]
+    got = _rank1_run(trank1.rank1_attention, ins, g, seed, 5, p)
+    assert LAUNCHES[trank1.NAME] == before + 2  # forward and backward
+    want = _rank1_run(trank1.rank1_attention_ref, ins, g, seed, 5, p)
+    for name, a, b in zip(("z", "dx1", "dx2", "dwq", "dwk"), got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        atol = 1e-5 * (b.abs().max().item() if name in ("dwq", "dwk") else 1.0)
+        assert ((a - b).abs() <= atol + 1e-4 * b.abs()).all(), name
+
+
+def test_rank1_kernel_three_runs_bit_equal(cuda):
+    *ins, g = _rank1_inputs(80, cuda, seed=3)
+    seed = torch.tensor([42], dtype=torch.int32, device=cuda)
+    runs = [_rank1_run(trank1.rank1_attention, ins, g, seed, 9, 0.2) for _ in range(3)]
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_rank1_kernel_keeps_one_minus_p(cuda):
+    """With wk = 0 every e is 1 and x2 = 1, so z = kept / ((1 - p) D): the
+    kernel's own mask, counted over 2.6 M draws, and equal to the plain
+    version's count."""
+    B, p = 80, 0.2
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    x1 = torch.randn(2, B, H, device=cuda)
+    ones = torch.ones(2, B, H, device=cuda)
+    zero_w = torch.zeros(2, H, device=cuda)
+    z = trank1.rank1_attention(x1, ones, torch.ones(2, H, device=cuda), zero_w, seed, 0, p)
+    kept = (z * (1 - p) * H).round().sum().item()
+    draws = 2 * B * H * H
+    assert abs(kept / draws - (1 - p)) <= 0.002
+    assert kept == trank1.keep_mask(seed, 0, B, p).sum().item()
+
+
+def test_rank1_kernel_refuses_bad_input(cuda):
+    *ins, _ = _rank1_inputs(4, cuda)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="seed"):
+        trank1.rank1_attention(*ins, seed.cpu(), 0, 0.2)
+    with pytest.raises(ValueError, match="x2"):
+        trank1.rank1_attention(ins[0], ins[1].double(), *ins[2:], seed, 0, 0.2)
+
+
+def _no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    model.dropout_rate = model.attn_dropout = 0.0
+
+
+def _randomize_constants(models, seed=1):
+    """Seeded random values for the parameters the reference initialises to
+    a constant (as ``chip_smoke.py`` does: with them the head's sequence
+    attentions work on rounding noise, and so do their gradients)."""
+    g = torch.Generator().manual_seed(seed)
+    new = {}
+    for name, p in models[0].named_parameters():
+        if p.numel() == 1 or p.detach().std().item() == 0:
+            new[name] = (torch.randn(p.shape, generator=g) / p.shape[0] ** 0.5
+                         if p.ndim == 2 and p.shape[0] > 1
+                         else p.detach().cpu() + 0.1 * torch.randn(p.shape, generator=g))
+    with torch.no_grad():
+        for model in models:
+            params = dict(model.named_parameters())
+            for name, value in new.items():
+                params[name].copy_(value.to(params[name].device))
+
+
+def test_train_step_card_matches_cpu(cuda):
+    batch = synthetic_batch(L=16, B=4, seed=2, min_len=6)
+    trainers = {d: ModelTrainer(device=d, seed=3) for d in ("cpu", "cuda")}
+    _randomize_constants([t.model for t in trainers.values()])
+    before = LAUNCHES[trank1.NAME]
+    losses = {}
+    for d, t in trainers.items():
+        _no_dropout(t.model)
+        losses[d] = t._train_step_impl(batch, 1e-3).item()
+    assert LAUNCHES[trank1.NAME] == before + 2 * 16  # T forward, T backward
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    cpu = dict(trainers["cpu"].model.named_parameters())
+    card = dict(trainers["cuda"].model.named_parameters())
+    top = max(p.grad.abs().max().item() for p in cpu.values() if p.grad is not None)
+    for name, p in cpu.items():
+        q = card[name]
+        assert (p.grad is None) == (q.grad is None), name
+        if p.grad is not None:
+            tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
+            assert (q.grad.cpu() - p.grad).abs().max().item() <= tol, name
+        assert (q.detach().cpu() - p.detach()).abs().max().item() <= 2.05e-3, name
+
+
+def test_trainer_eval_launches_the_recurrence_kernel(cuda, tmp_path):
+    feature_path = generate_iemocap_pickles(str(tmp_path), n_train=8, n_test=6,
+                                            min_len=4, max_len=12, seed=1)
+    _, _, test_loader = get_loaders(feature_path, batch_size=4)
+    trainer = ModelTrainer(seed=0, res_csv_path=str(tmp_path / "res.csv"))
+    assert trainer.device.type == "cuda"
+    before = LAUNCHES[tlsthm.NAME]
+    acc, f1, extras = trainer.eval_network(test_loader)
+    assert LAUNCHES[tlsthm.NAME] == before + len(test_loader) == before + 2
+    assert 0 <= acc <= 100 and 0 <= f1 <= 100 and extras == {}
+    assert (tmp_path / "res.csv").exists()

@@ -118,3 +118,57 @@ def test_seed_everything_seeds_every_generator():
     g = seed_everything(5)
     assert draws == (random.random(), np.random.random(), torch.rand(1).item(),
                      torch.rand(1, generator=g).item())
+
+
+def test_prefetch_loader_yields_the_loaders_batches(feature_paths):
+    """``PrefetchLoader`` around the port's test loader gives the JAX
+    package's ``PrefetchLoader`` batches, in order, and its length."""
+    tpath, jpath = feature_paths
+    ours = tloaders.PrefetchLoader(tloaders.get_loaders(tpath, batch_size=2)[2])
+    theirs = jloaders.PrefetchLoader(
+        jloaders.get_loaders(jpath, batch_size=2, num_workers=0)[2])
+    assert len(ours) == len(theirs) and ours.num_examples() == theirs.num_examples()
+    got, want = list(ours), list(theirs)
+    assert len(got) == len(want) == len(ours)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _assert_same(a, b, f"batch {i}")
+
+
+class _Failing:
+    def __len__(self):
+        return 3
+
+    def __iter__(self):
+        yield {"i": 0}
+        raise OSError("pickle read failed")
+
+
+def test_prefetch_loader_forwards_the_threads_exception():
+    it = iter(tloaders.PrefetchLoader(_Failing()))
+    assert next(it) == {"i": 0}
+    with pytest.raises(OSError, match="pickle read failed"):
+        next(it)
+
+
+def test_prefetch_loader_consumer_that_stops_early_leaves_no_blocked_thread():
+    import threading
+
+    class Endless:
+        def __len__(self):
+            return 10 ** 6
+
+        def __iter__(self):
+            i = 0
+            while True:
+                yield i
+                i += 1
+
+    before = set(threading.enumerate())
+    for _ in range(3):
+        it = iter(tloaders.PrefetchLoader(Endless(), depth=2))
+        assert [next(it) for _ in range(5)] == list(range(5))
+        it.close()  # the consumer walks away with the queue full
+    workers = set(threading.enumerate()) - before
+    for t in workers:
+        t.join(timeout=5)
+    assert not any(t.is_alive() for t in workers)

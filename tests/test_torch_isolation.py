@@ -49,3 +49,22 @@ def test_predict_cli_device_rule_without_cuda(monkeypatch, tmp_path):
         predict.main(["--synthetic", "--audio_frontend", "mfcc",
                       "--initial_model", str(tmp_path / "none.npz")])
     assert not list(tmp_path.iterdir())  # refused before any work
+
+
+def test_train_cli_device_rule_without_cuda(monkeypatch, tmp_path):
+    """The train CLI runs on ``cuda`` unless given ``--device cpu``, and
+    raises where CUDA is missing before it writes any file."""
+    from ser_tpu_torch.train import __main__ as train_cli
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    args = train_cli.parser_args(["--synthetic", "--epoch", "1",
+                                  "--save_path", str(tmp_path / "exp")])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(args)
+    assert not list(tmp_path.iterdir())  # refused before any work
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelTrainer()
+    assert ModelTrainer(device="cpu").generator.device.type == "cpu"

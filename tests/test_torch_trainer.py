@@ -1,0 +1,250 @@
+"""The port's trainer and train CLI on the CPU, and checkpoints across the two
+packages.
+
+- ``ModelTrainer`` trains MARN1_onlysp (full width, dropout on) for 12 epochs
+  on small synthetic pickles (16 train, 6 test dialogues of 6-16
+  utterances, batch 8): the loss falls and the test accuracy is above 30%,
+  the bar of ``tests/test_trainer_e2e.py``.
+- A checkpoint the port writes loads into the JAX package's ``ModelTrainer``
+  and one the JAX package writes loads into the port's, with equal eval
+  predictions: ``res.csv`` equal byte for byte.
+- The train CLI writes ``score.txt``, the checkpoints and ``parameters.csv``;
+  ``--eval True`` prints the JAX ``train.py``'s Acc/Fscore line on one
+  checkpoint; every flag the port cannot honour yet is refused with its
+  ROADMAP item.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import train as jtrain_cli
+from ser_tpu.data.loaders import get_loaders as jget_loaders
+from ser_tpu.train.trainer import ModelTrainer as JModelTrainer
+from ser_tpu_torch.data.loaders import PrefetchLoader, get_loaders
+from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
+from ser_tpu_torch.train import __main__ as train_cli
+from ser_tpu_torch.train.checkpoint import save_parameters
+from ser_tpu_torch.train.trainer import ModelTrainer
+
+BATCH = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's eager train loop is thousands of small ops: one intra-op
+    thread runs it several times faster than many, above all while other
+    test workers share the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def feature_path(tmp_path_factory):
+    return generate_iemocap_pickles(str(tmp_path_factory.mktemp("pickles")),
+                                    n_train=16, n_test=6, min_len=6,
+                                    max_len=16, seed=3)
+
+
+@pytest.fixture(scope="module")
+def trained(feature_path, tmp_path_factory):
+    train_loader, _, test_loader = get_loaders(feature_path, batch_size=BATCH,
+                                               valid=0.25)
+    trainer = ModelTrainer(device="cpu", seed=111, res_csv_path=str(
+        tmp_path_factory.mktemp("res") / "res.csv"))
+    losses = [trainer.train_network(epoch, PrefetchLoader(train_loader))[1]
+              for epoch in range(1, 13)]
+    return trainer, losses, test_loader
+
+
+@pytest.fixture(scope="module")
+def jax_trainer(tmp_path_factory):
+    return JModelTrainer(model="MARN1_onlysp", seed=5, res_csv_path=str(
+        tmp_path_factory.mktemp("jres") / "res.csv"))
+
+
+def _jax_test_loader(feature_path):
+    return jget_loaders(feature_path, dataset="IEMOCAP", batch_size=BATCH,
+                        valid=0.25, num_workers=0)[2]
+
+
+def test_loss_decreases(trained):
+    _, losses, _ = trained
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+def test_learns_above_chance(trained):
+    trainer, _, test_loader = trained
+    acc, f1, extras = trainer.eval_network(test_loader)
+    assert acc > 30.0, f"acc {acc} not above 6-way chance"
+    assert 0 <= f1 <= 100 and extras == {}
+    assert not trainer.model.training
+
+
+def test_step_lr_schedule(trained):
+    trainer, _, _ = trained
+    assert trainer.lr_at(1) == 1e-3
+    assert abs(trainer.lr_at(2) - 1e-3 * 0.98) < 1e-15
+    assert abs(trainer.lr_at(11) - 1e-3 * 0.98 ** 10) < 1e-15
+    assert trainer.optimizer.param_groups[0]["lr"] == trainer.lr_at(12)
+
+
+def test_port_checkpoint_loads_in_jax(trained, jax_trainer, feature_path, tmp_path):
+    trainer, _, test_loader = trained
+    ckpt = tmp_path / "port.model"
+    trainer.save_parameters(str(ckpt))
+    trainer.res_csv_path = str(tmp_path / "port.csv")
+    acc, f1, _ = trainer.eval_network(test_loader)
+    jax_trainer.load_parameters(str(ckpt))
+    jax_trainer.res_csv_path = str(tmp_path / "jax.csv")
+    jacc, jf1, _ = jax_trainer.eval_network(_jax_test_loader(feature_path))
+    assert (acc, f1) == (jacc, jf1)
+    assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
+
+
+def test_jax_checkpoint_loads_in_port(jax_trainer, feature_path, tmp_path, capsys):
+    ckpt = str(tmp_path / "jax.model")
+    jax_trainer.save_parameters(ckpt)
+    jax_trainer.res_csv_path = str(tmp_path / "jax.csv")
+    jacc, jf1, _ = jax_trainer.eval_network(_jax_test_loader(feature_path))
+    trainer = ModelTrainer(device="cpu", seed=0, res_csv_path=str(tmp_path / "port.csv"))
+    trainer.load_parameters(ckpt)
+    assert "is not in the model" not in capsys.readouterr().out
+    acc, f1, _ = trainer.eval_network(get_loaders(feature_path, batch_size=BATCH,
+                                                  valid=0.25)[2])
+    assert (acc, f1) == (jacc, jf1)
+    assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
+
+
+def test_tolerant_partial_load(tmp_path, capsys):
+    """Unknown names and wrong shapes are skipped with the reference's
+    prints; what fits loads; the rest keeps its values; Adam starts anew."""
+    src = ModelTrainer(device="cpu", seed=1)
+    dst = ModelTrainer(device="cpu", seed=2)
+    ckpt = tmp_path / "partial.npz"
+    save_parameters(src.model, ckpt)
+    with np.load(ckpt) as z:
+        flat = {k: z[k] for k in z.files}
+    kept = "encoder_l/slf_attn/w_qs/kernel"
+    bad_shape = "nn_out_3/bias"
+    partial = {kept: flat[kept], bad_shape: np.zeros(2, np.float32),
+               "module.linear_in/bias": flat["linear_in/bias"],
+               "no_such/param": np.zeros(3, np.float32)}
+    np.savez(tmp_path / "partial2.npz", **partial)
+    before = {k: v.clone() for k, v in dst.model.state_dict().items()}
+    dst.load_parameters(str(tmp_path / "partial2.npz"))
+    out = capsys.readouterr().out
+    assert "no_such/param is not in the model." in out
+    assert f"Wrong parameter length: {bad_shape}" in out
+    after, want = dst.model.state_dict(), src.model.state_dict()
+    for key in ("encoder_l.slf_attn.w_qs.weight", "linear_in.bias"):
+        assert after[key].equal(want[key]), key
+    for key in ("nn_out.3.bias", "linear_in.weight"):
+        assert after[key].equal(before[key]), key
+    assert not dst.optimizer.state
+
+
+def test_torch_export_loads_in_both_packages(trained, jax_trainer, tmp_path, capsys):
+    """``export_parameters_torch`` writes the reference's torch state dict:
+    the port's ``--torch_format`` load and the JAX package's torch import
+    both take every parameter of it unchanged."""
+    from ser_tpu.train.checkpoint import flatten_params
+    from ser_tpu_torch.compat.from_jax import to_jax_params
+
+    trainer, _, _ = trained
+    path = str(tmp_path / "export.model")
+    trainer.export_parameters_torch(path)
+    other = ModelTrainer(device="cpu", seed=9)
+    other.load_parameters(path, torch_format=True)
+    jax_trainer.load_parameters(path, torch_format=True)
+    assert "is not in the model" not in capsys.readouterr().out
+    want = trainer.model.state_dict()
+    for key, value in other.model.state_dict().items():
+        assert value.equal(want[key]), key
+    jflat = flatten_params(jax_trainer.params)
+    for name, value in to_jax_params(want).items():
+        np.testing.assert_array_equal(np.asarray(jflat[name]), value, err_msg=name)
+
+
+def test_init_args_is_jaxs(tmp_path):
+    import argparse
+
+    from ser_tpu.utils.paths import init_args as jinit_args
+    from ser_tpu_torch.utils.paths import init_args
+
+    ours = init_args(argparse.Namespace(save_path=str(tmp_path / "a")))
+    theirs = jinit_args(argparse.Namespace(save_path=str(tmp_path / "a")))
+    assert vars(ours) == vars(theirs)
+    assert (tmp_path / "a" / "model").is_dir()
+
+
+def _cli_args(feature_path, save_path, *extra):
+    return train_cli.parser_args(
+        ["--feature_path", feature_path, "--save_path", str(save_path),
+         "--batch_size", str(BATCH), "--device", "cpu", *extra])
+
+
+@pytest.fixture(scope="module")
+def cli_run(feature_path, tmp_path_factory):
+    """Two epochs of the train CLI on the CPU, run from a scratch directory
+    (``parameters.csv`` and ``res.csv`` go to the working directory)."""
+    work = tmp_path_factory.mktemp("cli")
+    mp = pytest.MonkeyPatch()
+    mp.chdir(work)
+    try:
+        train_cli.main(_cli_args(feature_path, work / "exp", "--epoch", "2"))
+    finally:
+        mp.undo()
+    return work
+
+
+def test_train_cli_writes_score_checkpoints_and_parameters(cli_run):
+    exp = cli_run / "exp"
+    lines = (exp / "score.txt").read_text().splitlines()
+    assert lines[:3] == ["Model: MARN1_onlysp ", "Dataset : IEMOCAP", "-" * 20]
+    epochs = [line for line in lines if " —— epoch " in line]
+    assert len(epochs) == 2 and "epoch 2, Loss " in epochs[1]
+    assert "Best Fscore: " in epochs[1]
+    assert sorted(p.name for p in (exp / "model").iterdir()) == [
+        "model_0001.model", "model_0002.model"]
+    rows = (cli_run / "parameters.csv").read_text().splitlines()
+    assert rows[0] == "w,v,v1,v2" and len(rows) == 3
+    assert np.isfinite([[float(v) for v in row.split(",")] for row in rows[1:]]).all()
+    assert (cli_run / "res.csv").exists()
+
+
+def test_eval_cli_prints_the_jax_train_py_line(cli_run, feature_path, tmp_path,
+                                               monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(cli_run / "exp" / "model" / "model_0002.model")
+    common = ["--eval", "True", "--initial_model", ckpt,
+              "--feature_path", feature_path, "--batch_size", str(BATCH)]
+    train_cli.main(train_cli.parser_args(
+        common + ["--save_path", str(tmp_path / "port"), "--device", "cpu"]))
+    port = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("Acc ")]
+    jtrain_cli.main(jtrain_cli.parser_args(
+        common + ["--save_path", str(tmp_path / "jax"), "--num_workers", "0"]))
+    jax = [line for line in capsys.readouterr().out.splitlines()
+           if line.startswith("Acc ")]
+    assert len(port) == 1 and port == jax
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--save_state"], "A.7"), (["--resume", "latest"], "A.7"),
+    (["--compute_dtype", "bf16"], "A.9"), (["--dp"], "A.14"),
+    (["--tp", "2"], "A.14"), (["--infonce", "0.1"], "A.12"),
+    (["--encoder_attention", "external"], "A.16"),
+    (["--dataset", "MELD"], "A.8"), (["--debug_nans"], "A.16")])
+def test_cli_refuses_what_the_port_lacks(flag, item, tmp_path):
+    args = _cli_args(str(tmp_path), tmp_path / "exp", *flag)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
+        train_cli.main(args)
+    assert not list(tmp_path.iterdir())  # refused before any file is written
+
+
+def test_cli_names_the_zoo_item_for_another_model(tmp_path):
+    with pytest.raises(KeyError, match="A.10-A.12"):
+        train_cli.main(_cli_args(str(tmp_path), tmp_path / "exp", "--model", "BiLSTM"))
