@@ -21,8 +21,8 @@ card, its plain version on the CPU. In train mode (``model.train()``, and a
 recurrence is a Python loop over T of the ported ops, both directions
 stacked on a leading axis (``_train_step_dir`` under the JAX package's
 ``_fused_directions``), with dropout 0.5 on h_s, h_l and h_a and the rank-1
-attention's train form ``ops.kernels.rank1.rank1_attention``: the CUDA
-kernel on the card, with its own backward; the plain version on the CPU.
+attention's train form bound once a call by ``ops.kernels.rank1.bind``: the
+CUDA kernel on the card, with its own backward; the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from ser_tpu_torch.ops.attention import (CrossAttentionReSeq,
 from ser_tpu_torch.ops.cells import LSTHM, RNNCellWeights, gru_step, lsthm_gates
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.lsthm import lsthm_onlysp_recurrence_bidir
-from ser_tpu_torch.ops.kernels.rank1 import rank1_attention
+from ser_tpu_torch.ops.kernels.rank1 import bind as rank1_bind
 from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout
 from ser_tpu_torch.ops.masking import reverse_seq, scatter_parties, select_parties
 
@@ -101,6 +101,7 @@ def train_recurrence(seqs, consts, generator: torch.Generator,
     h_l, c_l, h_a, c_a, z = (zeros(2, B, H) for _ in range(5))
     q = zeros(2, B, qmask.shape[-1], gWhh.shape[-2])
     drop = lambda x: dropout(x, dropout_rate, generator)
+    attend = rank1_bind(wq, wk, seed, attn_dropout)  # wq, wk, seed, p checked once
     ys = []
     for t in range(T):
         qm = qmask[t]
@@ -112,7 +113,7 @@ def train_recurrence(seqs, consts, generator: torch.Generator,
         c_a, h_a = lsthm_gates(
             xa_proj[t] + torch.matmul(torch.cat([h_a, z, h_s], -1), K_a) + b_a, c_a)
         h_a = drop(h_a)
-        z = rank1_attention(c_l, c_a, wq, wk, seed, t, attn_dropout)
+        z = attend(c_l, c_a, t)
         ys.append(torch.cat([h_l, h_a, z, h_s], -1))
     return torch.stack(ys)
 

@@ -10,8 +10,10 @@ under ``jax.checkpoint`` in the JAX package) and its analytic backward
     seed                 [1] int32 on the same device; step an int; p a float
     returns z            [2, B, D]
 
-The kernel is ``csrc/rank1_attention.cu``; its source note gives the design
-and what bounds it. Its forward saves only x1, x2, wq, wk and the seed: the
+The kernel is ``csrc/rank1_attention.cu``, one launch each way; its source
+note gives the design and what bounds it. ``bind`` checks wq, wk, the seed
+and p once for a whole train recurrence (``Rank1Kernel``), so a step checks
+only x1 and x2. Its forward keeps only x1, x2, wq, wk and the seed: the
 backward recomputes ``e`` and regenerates the dropout mask, so no
 ``[2, B, D, D]`` tensor is kept for a step. The mask is a pure function of
 (seed, step, direction, b, i, k), a murmur3 ``fmix32`` hash that
@@ -114,75 +116,142 @@ def rank1_attention_bwd_ref(x1, x2, wq, wk, seed, step: int, p: float, g):
             (x2 * B2 + B3).sum(1))
 
 
-def _check(x1, x2, wq, wk, seed, g=None):
-    B = x1.shape[1] if x1.ndim == 3 else 0
-    want = {"x1": ((2, B, D), torch.float32), "x2": ((2, B, D), torch.float32),
-            "wq": ((2, D), torch.float32), "wk": ((2, D), torch.float32),
-            "seed": ((1,), torch.int32)}
-    tensors = [x1, x2, wq, wk, seed]
-    if g is not None:
-        want["g"] = ((2, B, D), torch.float32)
-        tensors.append(g)
-    if B < 1:
-        raise ValueError(f"x1 must be [2, B>=1, {D}], got {tuple(x1.shape)}")
-    for (name, (shape, dtype)), t in zip(want.items(), tensors):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, kernel takes "
-                             f"{dtype} {shape}")
-        if t.device != x1.device:
-            raise ValueError(f"{name} on {t.device}, x1 on {x1.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+def _refuse(name, t, shape, dtype, device):
+    """Raise ValueError naming what of ``t`` the kernel does not take."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, kernel takes "
+                         f"{dtype} {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, the kernel's tensors on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
 
 
-def _launch_fwd(x1, x2, wq, wk, seed, step, p):
-    _check(x1, x2, wq, wk, seed)
-    z = torch.empty_like(x1)
-    with torch.cuda.device(x1.device):
-        err = _library().rank1_attention_fwd(
-            *(t.data_ptr() for t in (x1, x2, wq, wk, seed)), step, x1.shape[1],
-            keep_threshold(p), 1.0 - p, z.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rank1_attention_fwd launch failed: CUDA error {err}")
-    LAUNCHES[NAME] += 1
-    return z
+def _takes(t, shape, device) -> bool:
+    return (t.dtype is torch.float32 and t.shape == shape and t.device == device
+            and t.is_contiguous())
 
 
-def _launch_bwd(x1, x2, wq, wk, seed, step, p, g):
-    _check(x1, x2, wq, wk, seed, g)
-    B = x1.shape[1]
-    dx1, dx2 = torch.empty_like(x1), torch.empty_like(x2)
-    dwq, dwk = torch.empty_like(wq), torch.empty_like(wk)
-    part = torch.empty((2, 2, B, D), dtype=torch.float32, device=x1.device)
-    with torch.cuda.device(x1.device):
-        err = _library().rank1_attention_bwd(
-            *(t.data_ptr() for t in (x1, x2, wq, wk, seed)), step, B,
-            keep_threshold(p), 1.0 - p,
-            *(t.data_ptr() for t in (g, dx1, dx2, part, dwq, dwk)),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rank1_attention_bwd launch failed: CUDA error {err}")
-    LAUNCHES[NAME] += 1
-    return dx1, dx2, dwq, dwk
+def check_consts(wq, wk, seed) -> None:
+    """wq, wk [2, D] f32 and the seed [1] int32, contiguous, on one device;
+    raises ValueError on anything else."""
+    for name, t, shape, dtype in (("wq", wq, (2, D), torch.float32),
+                                  ("wk", wk, (2, D), torch.float32),
+                                  ("seed", seed, (1,), torch.int32)):
+        _refuse(name, t, shape, dtype, wq.device)
 
 
-class Rank1Attention(torch.autograd.Function):
-    """The kernel under autograd: the forward saves x1, x2, wq, wk and the
-    seed; the backward is the kernel's backward."""
+def check_inputs(x1, x2, g=None, device=None) -> int:
+    """B of ``x1``, which with x2 and g must be [2, B, D] f32, contiguous and
+    on ``device`` (x1's when None); raises ValueError on anything else."""
+    shape = x1.shape
+    if not (len(shape) == 3 and shape[0] == 2 and shape[2] == D and shape[1] >= 1):
+        raise ValueError(f"x1 must be [2, B>=1, {D}], got {tuple(shape)}")
+    device = x1.device if device is None else device
+    for name, t in (("x1", x1), ("x2", x2), ("g", g)):
+        if t is not None and not _takes(t, shape, device):
+            _refuse(name, t, shape, torch.float32, device)
+    return shape[1]
+
+
+# the backward's scratch (dwq, dwk parts [2, 2, B, D]) and its two-int ticket,
+# made once per (device, B); the kernel leaves the ticket at 0
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, B: int):
+    key = (device.index, B)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (torch.empty((2, 2, B, D), dtype=torch.float32, device=device),
+                         torch.zeros(2, dtype=torch.int32, device=device))
+    return _SCRATCH[key]
+
+
+class Rank1Kernel:
+    """The kernel bound to one train recurrence's wq, wk, seed and p, which
+    are checked once here; a call checks only x1 and x2 (and g in the
+    backward) and launches one kernel each way. Differentiable through
+    ``__call__``. The backward's scratch is shared by every binding of a
+    device and B, so two backwards of one shape must not run at once on
+    two streams."""
+
+    def __init__(self, wq, wk, seed, p: float):
+        self.device = wq.device
+        if self.device.type != "cuda":
+            raise ValueError(f"the rank-1 kernel takes CUDA tensors, wq is on {wq.device}")
+        check_consts(wq, wk, seed)
+        self.wq, self.wk, self.seed, self.p = wq, wk, seed, p
+        self.threshold, self.keep = keep_threshold(p), 1.0 - p
+        self._consts = (wq.data_ptr(), wk.data_ptr(), seed.data_ptr())
+        lib = _library()
+        self._fwd, self._bwd = lib.rank1_attention_fwd, lib.rank1_attention_bwd
+        # the current stream as a raw handle (CUDA builds of torch), without
+        # making a Stream object a call
+        index, raw = self.device.index, torch._C._cuda_getCurrentRawStream
+        self._stream = lambda: raw(index)
+
+    def check(self, x1, x2, g=None) -> int:
+        return check_inputs(x1, x2, g, self.device)
+
+    def _launch(self, fn, *args) -> None:
+        if torch.cuda.current_device() == self.device.index:
+            err = fn(*args, self._stream())
+        else:
+            with torch.cuda.device(self.device):
+                err = fn(*args, self._stream())
+        if err != 0:
+            raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+        LAUNCHES[NAME] += 1
+
+    def launch_fwd(self, x1, x2, step: int, z) -> None:
+        """The forward into ``z``, with no checks: for inputs ``check`` took."""
+        self._launch(self._fwd, x1.data_ptr(), x2.data_ptr(), *self._consts, step,
+                     x1.shape[1], self.threshold, self.keep, z.data_ptr())
+
+    def forward(self, x1, x2, step: int):
+        """z [2, B, D], one launch."""
+        self.check(x1, x2)
+        z = torch.empty_like(x1)
+        self.launch_fwd(x1, x2, step, z)
+        return z
+
+    def launch_bwd(self, x1, x2, step: int, g, dx, dw) -> None:
+        """The backward into ``dx`` [2 (dx1, dx2), 2, B, D] and ``dw``
+        [2 (dwq, dwk), 2, D], with no checks: for inputs ``check`` took."""
+        B = x1.shape[1]
+        part, ticket = _scratch(self.device, B)
+        dx_ptr, dw_ptr = dx.data_ptr(), dw.data_ptr()
+        self._launch(self._bwd, x1.data_ptr(), x2.data_ptr(), *self._consts, step, B,
+                     self.threshold, self.keep, g.data_ptr(), dx_ptr,
+                     dx_ptr + 2 * B * D * 4, part.data_ptr(), ticket.data_ptr(),
+                     dw_ptr, dw_ptr + 2 * D * 4)
+
+    def backward(self, x1, x2, step: int, g):
+        """(dx1, dx2, dwq, dwk) from the output gradient g, one launch."""
+        B = self.check(x1, x2, g)
+        dx = torch.empty((2, 2, B, D), dtype=torch.float32, device=self.device)
+        dw = torch.empty((2, 2, D), dtype=torch.float32, device=self.device)
+        self.launch_bwd(x1, x2, step, g, dx, dw)
+        return (*dx.unbind(0), *dw.unbind(0))
+
+    def __call__(self, x1, x2, step: int) -> torch.Tensor:
+        return _Rank1Function.apply(x1, x2, self.wq, self.wk, self, step)
+
+
+class _Rank1Function(torch.autograd.Function):
+    """The kernel under autograd: the forward saves x1 and x2 (wq, wk and the
+    seed stay with the binding); the backward is the kernel's backward."""
 
     @staticmethod
-    def forward(ctx, x1, x2, wq, wk, seed, step, p):
-        ctx.save_for_backward(x1, x2, wq, wk, seed)
-        ctx.step, ctx.p = step, p
-        return _launch_fwd(x1, x2, wq, wk, seed, step, p)
+    def forward(ctx, x1, x2, wq, wk, kernel, step):
+        ctx.save_for_backward(x1, x2)
+        ctx.kernel, ctx.step = kernel, step
+        return kernel.forward(x1, x2, step)
 
     @staticmethod
     def backward(ctx, g):
-        x1, x2, wq, wk, seed = ctx.saved_tensors
-        grads = _launch_bwd(x1, x2, wq, wk, seed, ctx.step, ctx.p,
-                            g.contiguous())
-        return (*grads, None, None, None)
+        x1, x2 = ctx.saved_tensors
+        return (*ctx.kernel.backward(x1, x2, ctx.step, g.contiguous()), None, None)
 
 
 @functools.cache
@@ -196,10 +265,42 @@ def _library() -> ctypes.CDLL:
                                  ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     lib.rank1_attention_bwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                                 ctypes.c_float] + [ctypes.c_void_p] * 7)
-    for fn in (lib.rank1_attention_fwd, lib.rank1_attention_bwd):
+                                 ctypes.c_float] + [ctypes.c_void_p] * 8)
+    lib.rank1_attention_occupancy.argtypes = [ctypes.c_void_p]
+    for fn in (lib.rank1_attention_fwd, lib.rank1_attention_bwd,
+               lib.rank1_attention_occupancy):
         fn.restype = ctypes.c_int
     return lib
+
+
+def occupancy() -> dict[str, int]:
+    """The kernels' launch shape on the current device: the forward's threads
+    a block and blocks a (row, direction), the backward's threads a block
+    (one block a row and direction) and dynamic shared memory, and the
+    blocks an SM holds of each kernel."""
+    out = (ctypes.c_int * 6)()
+    err = _library().rank1_attention_occupancy(out)
+    if err != 0:
+        raise RuntimeError(f"rank1_attention_occupancy failed: CUDA error {err}")
+    return {"fwd_threads": out[0], "fwd_split": out[1], "bwd_threads": out[2],
+            "bwd_split": 1, "bwd_smem": out[3], "fwd_blocks": out[4],
+            "bwd_blocks": out[5]}
+
+
+def bind(wq, wk, seed, p: float):
+    """``attend(x1, x2, step) -> z`` for one train recurrence: the kernel
+    (``Rank1Kernel``) where wq lies on the card, the plain version on the
+    CPU."""
+    if wq.device.type == "cuda":
+        return Rank1Kernel(wq, wk, seed, p)
+    if wq.device.type == "cpu":
+        return bind_ref(wq, wk, seed, p)
+    raise ValueError(f"no rank-1 attention for device {wq.device}")
+
+
+def bind_ref(wq, wk, seed, p: float):
+    """The plain version bound as ``bind`` binds the kernel, on any device."""
+    return lambda x1, x2, step: rank1_attention_ref(x1, x2, wq, wk, seed, step, p)
 
 
 def rank1_attention(x1, x2, wq, wk, seed, step: int, p: float) -> torch.Tensor:
@@ -208,7 +309,7 @@ def rank1_attention(x1, x2, wq, wk, seed, step: int, p: float) -> torch.Tensor:
     autograd) or raises; on CPU tensors it runs the plain version."""
     dev = x1.device
     if dev.type == "cuda":
-        return Rank1Attention.apply(x1, x2, wq, wk, seed, step, p)
+        return Rank1Kernel(wq, wk, seed, p)(x1, x2, step)
     if dev.type == "cpu":
         return rank1_attention_ref(x1, x2, wq, wk, seed, step, p)
     raise ValueError(f"no rank-1 attention for device {dev}")

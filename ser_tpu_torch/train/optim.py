@@ -17,11 +17,12 @@ the coupled decay move them by about lr a step. The JAX package reaches the
 same result by freezing any leaf whose gradient is all zero
 (``_mask_dead_params``).
 
-One edge differs, and the port keeps torch's side of it: a LIVE parameter
-whose gradient is all zero for a step (a fully padded batch) is frozen for
-that step by the JAX package, while torch's Adam, and so the port, applies
-the decay and the moments' update to it. The reference's data never meets
-it.
+A LIVE parameter whose gradient is all zero for a step (a fully padded
+batch) keeps its value for that step, as in the JAX package, whose mask
+zeroes the update while Adam's moments and count still advance; torch's own
+Adam would apply the decay to it. ``Adam.step`` restores such a parameter
+after torch's step: the moments advance as optax's do. The reference's data
+never meets it.
 """
 
 from __future__ import annotations
@@ -29,12 +30,37 @@ from __future__ import annotations
 import torch
 
 
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam``, except that a parameter whose gradient is all
+    zero keeps its value for the step (the JAX package's
+    ``_mask_dead_params``). The restore is a few device ops over all
+    parameters at once (an infinity norm of every gradient, three ``cat``s,
+    a ``where`` and a ``_foreach_copy_``), with no host sync."""
+
+    def step(self, closure=None):
+        params = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None]
+        if not params:
+            return super().step(closure)
+        with torch.no_grad():
+            frozen = torch.stack(torch._foreach_norm(
+                [p.grad for p in params], float("inf"))) == 0
+            before = torch.cat([p.reshape(-1) for p in params])
+        loss = super().step(closure)
+        with torch.no_grad():
+            sizes = [p.numel() for p in params]
+            after = torch.cat([p.reshape(-1) for p in params])
+            mask = torch.cat([f.expand(n) for f, n in zip(frozen, sizes)])
+            kept = torch.where(mask, before, after).split(sizes)
+            torch._foreach_copy_(params, [k.view_as(p) for k, p in zip(kept, params)])
+        return loss
+
+
 def torch_adam(params, lr: float = 1e-3, weight_decay: float = 2e-5,
-               betas=(0.9, 0.999), eps: float = 1e-8) -> torch.optim.Adam:
-    """``torch.optim.Adam`` with coupled weight decay; the trainer sets the
-    learning rate of each epoch from ``step_lr``."""
-    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps,
-                            weight_decay=weight_decay)
+               betas=(0.9, 0.999), eps: float = 1e-8) -> Adam:
+    """Adam with coupled weight decay; the trainer sets the learning rate of
+    each epoch from ``step_lr``."""
+    return Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

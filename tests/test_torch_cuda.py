@@ -228,7 +228,7 @@ def _rank1_run(fn, ins, g, seed, step, p):
     return (z.detach(), *grads)
 
 
-@pytest.mark.parametrize("B", [1, 31, 80])
+@pytest.mark.parametrize("B", [1, 31, 80, 97, 256])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 def test_rank1_kernel_matches_plain_version(cuda, B, p):
     *ins, g = _rank1_inputs(B, cuda, seed=B)
@@ -243,12 +243,35 @@ def test_rank1_kernel_matches_plain_version(cuda, B, p):
         assert ((a - b).abs() <= atol + 1e-4 * b.abs()).all(), name
 
 
-def test_rank1_kernel_three_runs_bit_equal(cuda):
-    *ins, g = _rank1_inputs(80, cuda, seed=3)
+@pytest.mark.parametrize("B", [80, 256])
+def test_rank1_kernel_three_runs_bit_equal(cuda, B):
+    """dwq and dwk are summed over b by the last block to take a ticket: the
+    sum must not depend on which block that is."""
+    *ins, g = _rank1_inputs(B, cuda, seed=3)
     seed = torch.tensor([42], dtype=torch.int32, device=cuda)
     runs = [_rank1_run(trank1.rank1_attention, ins, g, seed, 9, 0.2) for _ in range(3)]
     for a, b, c in zip(*runs):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_rank1_kernel_one_cuda_kernel_each_way(cuda):
+    """Under the profiler, a forward and a backward are one CUDA kernel
+    each: no row-sum kernel, no fill, no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    *ins, g = _rank1_inputs(80, cuda, seed=4)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    kernel = trank1.Rank1Kernel(ins[2], ins[3], seed, 0.2)
+    kernel.backward(ins[0], ins[1], 0, g)  # the scratch is made on first use
+    torch.cuda.synchronize()
+    for run, want in ((lambda: kernel.forward(ins[0], ins[1], 1), "rank1_fwd_kernel"),
+                      (lambda: kernel.backward(ins[0], ins[1], 1, g), "rank1_bwd_kernel")):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and want in names[0], names
 
 
 def test_rank1_kernel_keeps_one_minus_p(cuda):
@@ -268,12 +291,29 @@ def test_rank1_kernel_keeps_one_minus_p(cuda):
 
 
 def test_rank1_kernel_refuses_bad_input(cuda):
-    *ins, _ = _rank1_inputs(4, cuda)
+    *ins, g = _rank1_inputs(4, cuda)
     seed = torch.tensor([1], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="seed"):
         trank1.rank1_attention(*ins, seed.cpu(), 0, 0.2)
     with pytest.raises(ValueError, match="x2"):
         trank1.rank1_attention(ins[0], ins[1].double(), *ins[2:], seed, 0, 0.2)
+    with pytest.raises(ValueError, match="wk"):
+        trank1.bind(ins[2], ins[3][:, :64].contiguous(), seed, 0.2)
+    # what only the per-call binding sees: x1, x2 and g at each step
+    kernel = trank1.bind(ins[2], ins[3], seed, 0.2)
+    x1, x2 = ins[:2]
+    for bad, match in ((x1.double(), "x1"), (x1[:, :3].contiguous(), "x2"),
+                       (x1.cpu(), "x1 on cpu"),
+                       (x1.transpose(1, 2).contiguous().transpose(1, 2), "not contiguous"),
+                       (x1[:1].contiguous(), r"\[2, B>=1, 128\]")):
+        with pytest.raises(ValueError, match=match):
+            kernel(bad, x2, 0)
+    with pytest.raises(ValueError, match="x2 on cpu"):
+        kernel(x1, x2.cpu(), 0)
+    with pytest.raises(ValueError, match="g: torch.float64"):
+        kernel.backward(x1, x2, 0, g.double())
+    with pytest.raises(ValueError, match="g is not contiguous"):
+        kernel.backward(x1, x2, 0, g.transpose(1, 2).contiguous().transpose(1, 2))
 
 
 def _no_dropout(model):

@@ -118,15 +118,48 @@ def test_adam_with_step_lr_matches_jax_and_skips_dead_params():
     assert not np.array_equal(w.detach().numpy(), p0["w"])
 
 
+def test_live_param_with_all_zero_grad_matches_jax_step_for_step():
+    """A live parameter whose gradient is all zero for a step (a fully padded
+    batch): the JAX package zeroes its update while Adam's moments and count
+    advance (``_mask_dead_params``); the port restores it after the step."""
+    rng = np.random.default_rng(1)
+    p0 = rng.standard_normal((4, 6)).astype(np.float32)
+    grads = [rng.standard_normal((4, 6)).astype(np.float32) for _ in range(5)]
+    grads[2][:] = 0.0
+    w = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = optim.torch_adam([w], lr=1e-2, weight_decay=2e-5)
+    tx = joptim.torch_adam(weight_decay=2e-5)
+    params = {"w": jnp.asarray(p0)}
+    state = tx.init(params)
+    state.hyperparams["learning_rate"] = jnp.float32(1e-2)
+    for step, g in enumerate(grads):
+        before = w.detach().clone()
+        opt.zero_grad(set_to_none=True)
+        w.grad = torch.from_numpy(g)
+        opt.step()
+        updates, state = tx.update({"w": jnp.asarray(g)}, state, params)
+        params = optax.apply_updates(params, updates)
+        np.testing.assert_allclose(w.detach().numpy(), np.asarray(params["w"]),
+                                   rtol=1e-5, atol=1e-7, err_msg=f"step {step}")
+        if step == 2:
+            assert torch.equal(w.detach(), before)
+    assert opt.state[w]["step"].item() == 5
+
+
 def test_zeroed_grad_would_drift_a_dead_param():
-    """The trap the port avoids by never touching a dead parameter in the
-    forward: a zero tensor in ``.grad`` lets the coupled decay move the
-    parameter by about lr on Adam's first step."""
+    """The trap torch's own Adam sets: a zero tensor in ``.grad`` lets the
+    coupled decay move the parameter by about lr on Adam's first step. The
+    port's Adam freezes it for that step, as the JAX package does."""
     p = torch.nn.Parameter(torch.full((3,), 2.0))
-    opt = optim.torch_adam([p], lr=1e-3)
+    plain = torch.optim.Adam([p], lr=1e-3, weight_decay=2e-5)
     p.grad = torch.zeros(3)
-    opt.step()
+    plain.step()
     np.testing.assert_allclose(p.detach().numpy(), 2.0 - 1e-3, rtol=1e-6)
+    q = torch.nn.Parameter(torch.full((3,), 2.0))
+    opt = optim.torch_adam([q], lr=1e-3)
+    q.grad = torch.zeros(3)
+    opt.step()
+    assert (q.detach() == 2.0).all()
 
 
 def test_step_lr_is_jaxs():

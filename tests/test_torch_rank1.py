@@ -11,7 +11,10 @@ built from, on the CPU.
 - The dropout mask: the torch int64 hash against an independent numpy uint32
   implementation, bit for bit; its kept fraction; no correlation between
   neighbouring keys, rows or steps.
-- The wrapper's constants against ``csrc/rank1_attention.cu``.
+- The wrapper's constants against ``csrc/rank1_attention.cu``, the kernel's
+  folded row key and its warp reduce-scatter layout in numpy.
+- ``chip_smoke.py``'s SDPA yardstick at p = 0 against the plain version:
+  within 1e-5 of each tensor's largest entry.
 """
 
 import re
@@ -203,23 +206,113 @@ def test_wrapper_constants_match_the_kernel_source():
     # the hash of the source is the one this module reproduces
     assert "fmix32((uint32_t)seed[0] + fmix32(2u * (uint32_t)step + (uint32_t)d + SALT))" in src
     assert "fmix32(skey + fmix32((uint32_t)(b * D + i) + SALT))" in src
-    assert "fmix32(rkey ^ (uint32_t)k) >= threshold" in src
-    assert "atomicAdd" not in src  # the sums over b are deterministic
+    # the per-pair hash: fmix32(rkey ^ k) with the first shift-xor folded
+    # into the row key (test_folded_row_key_is_fmix32_bit_for_bit)
+    assert "rpre = rkey ^ (rkey >> 16);" in src
+    assert "fmix32_tail(rpre ^ (uint32_t)k) >= threshold" in src
+    # the sums over b are deterministic: no float atomics, an integer ticket
+    assert not re.search(r"atomicAdd\(\s*(dw|part|acc|\(float)", src)
+    assert "atomicAdd(&ticket[d], 1)" in src
+    assert "rank1_sum_rows_kernel" not in src  # the backward is one launch
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_checks_shapes():
-    x1, x2, wq, wk, _ = map(torch.from_numpy, _inputs(2, seed=5))
+    x1, x2, wq, wk, g = map(torch.from_numpy, _inputs(2, seed=5))
     got = rank1.rank1_attention(x1, x2, wq, wk, _seed(), 1, 0.2)
     torch.testing.assert_close(
         got, rank1.rank1_attention_ref(x1, x2, wq, wk, _seed(), 1, 0.2),
         rtol=0, atol=0)
     with pytest.raises(ValueError, match="wq"):
-        rank1._check(x1, x2, wq[:, :64].contiguous(), wk, _seed())
+        rank1.check_consts(wq[:, :64].contiguous(), wk, _seed())
     with pytest.raises(ValueError, match="seed"):
-        rank1._check(x1, x2, wq, wk, torch.tensor([1], dtype=torch.int64))
+        rank1.check_consts(wq, wk, torch.tensor([1], dtype=torch.int64))
     with pytest.raises(ValueError, match="not contiguous"):
-        rank1._check(x1.transpose(1, 2).contiguous().transpose(1, 2), x2, wq, wk,
-                     _seed())
+        rank1.check_inputs(x1.transpose(1, 2).contiguous().transpose(1, 2), x2)
+    with pytest.raises(ValueError, match="g: torch.float64"):
+        rank1.check_inputs(x1, x2, g.double())
+    with pytest.raises(ValueError, match="x2 on meta"):
+        rank1.check_inputs(x1, x2.to("meta"))
+    assert rank1.check_inputs(x1, x2, g) == 2
     with pytest.raises(ValueError, match="no rank-1 attention"):
         rank1.rank1_attention(*(t.to("meta") for t in (x1, x2, wq, wk)),
                               _seed().to("meta"), 0, 0.2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rank1.Rank1Kernel(wq, wk, _seed(), 0.2)
+
+
+def test_bind_on_cpu_is_the_plain_version_for_every_step():
+    """What train_recurrence calls: wq, wk, the seed and p bound once."""
+    x1, x2, wq, wk, _ = map(torch.from_numpy, _inputs(3, seed=6))
+    attend = rank1.bind(wq, wk, _seed(), 0.2)
+    for step in (0, 5):
+        torch.testing.assert_close(
+            attend(x1, x2, step),
+            rank1.rank1_attention_ref(x1, x2, wq, wk, _seed(), step, 0.2),
+            rtol=0, atol=0)
+    with pytest.raises(ValueError, match="no rank-1 attention"):
+        rank1.bind(wq.to("meta"), wk, _seed(), 0.2)
+
+
+def test_folded_row_key_is_fmix32_bit_for_bit():
+    """The kernel folds fmix32's first shift-xor into the row key: for
+    k < 2^16, fmix32(r ^ k) == fmix32_tail((r ^ (r >> 16)) ^ k)."""
+    rng = np.random.default_rng(7)
+    r = rng.integers(0, 2 ** 32, size=(512, 1), dtype=np.uint64).astype(np.uint32)
+    k = np.arange(D, dtype=np.uint32)[None, :]
+    want = _fmix32_np(r ^ k)
+    h = (r ^ (r >> np.uint32(16))) ^ k
+    with np.errstate(over="ignore"):
+        h = h * np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h = h * np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    np.testing.assert_array_equal(h, want)
+
+
+def _warp_sum_scatter_np(v):
+    """The kernel's warp_sum_scatter over 32 lanes in numpy, ``v`` [32, N]
+    a lane's values: each round a lane keeps the half its bit o selects and
+    adds the partner's copy; then plain butterflies."""
+    v = v.copy()
+    lanes = np.arange(32)
+    n, o = v.shape[1], 16
+    while n > 1:
+        h = n // 2
+        up = (lanes & o) != 0
+        send = np.where(up[:, None], v[:, :h], v[:, h:n])
+        mine = np.where(up[:, None], v[:, h:n], v[:, :h])
+        v = mine + send[lanes ^ o]
+        n, o = h, o // 2
+    total = v[:, 0]
+    while o >= 1:
+        total = total + total[lanes ^ o]
+        o //= 2
+    return total
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_warp_sum_scatter_lane_layout(n):
+    """Lane l ends with the warp's sum of value l / (32 / n): the layout the
+    kernel reads a row group's sums from (den, num forward; den, num, A2, A3
+    backward, each 32 / n lanes after the last)."""
+    v = np.random.default_rng(n).integers(-1000, 1000, size=(32, n)).astype(np.float64)
+    got = _warp_sum_scatter_np(v)
+    np.testing.assert_array_equal(got, v.sum(0)[np.arange(32) // (32 // n)])
+
+
+def test_sdpa_yardstick_is_the_same_function():
+    """chip_smoke.py times F.scaled_dot_product_attention as the kernel's
+    library call: at p = 0 it must compute the plain version's z and
+    gradients, within 1e-5 of each tensor's largest entry."""
+    import chip_smoke
+
+    x1, x2, wq, wk, g = map(torch.from_numpy, _inputs(5, seed=8))
+    outs = []
+    for fn in (lambda *a: chip_smoke.rank1_sdpa(torch, *a, 0.0),
+               lambda *a: rank1.rank1_attention_ref(*a, _seed(), 0, 0.0)):
+        ts = [t.clone().requires_grad_() for t in (x1, x2, wq, wk)]
+        z = fn(*ts)
+        outs.append((z.detach(), *torch.autograd.grad(z, ts, g)))
+    for name, a, b in zip(("z", "dx1", "dx2", "dwq", "dwk"), *outs):
+        assert a.shape == b.shape, name
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item(), name
