@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
  1. the card's name and power limit, torch and CUDA versions; TF32 off;
  2. build every kernel from ``ser_tpu_torch/csrc`` with nvcc, one process
-    per source, all started together; registers and spills of every kernel,
-    for the recurrence its cluster size, the clusters the card holds at
-    once and the shared memory a CTA at each tile height, and for the MFCC
+    per source, all started together; registers and spills of every kernel
+    (the recurrence's P = 2 and P = 9 instantiations must not spill), for
+    the recurrence its cluster size, the clusters the card holds at once
+    and the shared memory a CTA by (parties, tile height), and for the MFCC
     kernel its shared memory a block and the blocks an SM holds, for the
     rank-1 kernel its block, the backward's shared memory and the blocks
     and warps an SM holds of each way;
@@ -16,6 +17,12 @@ Phases, each fatal on failure:
     T = 110 for B on both sides of every tile height, at T = 1 and with a
     fully padded row, every launch synchronised, and twice on one input for
     bit-equal outputs;
+ 3c. the recurrence kernel at P = 9 (MELD) the same way: B = 1, 16, 80, a
+    fully padded row and an all-zero qmask mid-sequence, then the MELD
+    request shapes: the test split of ``generate_meld_pickles(n_test=280)``
+    (MELD's published test-split dialogue count) collated at batch 80,
+    [32, 80] after bucketing, through a 7-class model's
+    ``recurrence_inputs``;
  3b. the MFCC kernel against its plain version at the IEMOCAP eval wav
     shape, at ``bench.py``'s [1606, 4000], at 1 s utterances (several tiles
     a row, a ragged last tile), at rows that start off 16-byte alignment, at
@@ -34,9 +41,16 @@ Phases, each fatal on failure:
  4c. the entry point: ``python -m ser_tpu_torch.predict --synthetic
     --audio_frontend mfcc`` with a seeded checkpoint on the card, against a
     ``--device cpu`` run on the same pickles;
+ 4d. the MELD entry point: ``ser_tpu_torch.predict.main`` with ``--dataset
+    MELD --n_classes 7`` and ``3`` in this process, on the card (the
+    recurrence kernel's launches counted) and on the CPU, on those pickles;
  5. CUDA-event timings: the recurrence kernel, its plain version, its
     chain floor (T rounds of its cluster exchanges with no work between
-    them) and a whole feature request at the IEMOCAP eval shape; the
+    them) and a whole feature request at the IEMOCAP eval shape; the P = 9
+    kernel at the MELD request shape [32, 80] with its plain version, bound
+    and chain floor (the exchanges; the party select and scatter on the
+    chain printed apart, estimated from an instruction count), in turns
+    with the P = 2 kernel (P = 2, 9, 9, 2); the
     recurrence over B; the MFCC kernel at the eval wav shape a wrapper call
     and as device time (launches replayed from a CUDA graph), on one input
     and on three inputs taken in turn (125 MB, more than the L2 holds), its
@@ -63,6 +77,12 @@ Phases, each fatal on failure:
     in every eval batch), one train step with the MFCC front end, then
     ``python -m ser_tpu_torch.train --synthetic --epoch 2`` and ``python -m
     ser_tpu_torch.predict`` on its epoch-2 checkpoint;
+ 7d. exact resume on MELD: ``ser_tpu_torch.train.__main__.main`` with
+    ``--dataset MELD --n_classes 7 --save_state`` for 2 epochs, then
+    ``--resume latest --epoch 3``, and 3 epochs without a stop; the state
+    loaded back into a trainer and saved again equals the saved one bit for
+    bit; the largest difference between the resumed and the unstopped
+    run's state; the kernels' launches of the unstopped run;
  8. train timings: the rank-1 kernel a wrapper call and in device time
     (CUDA graph), its CUDA launches a forward and backward pair (profiler),
     its wrapper's host time split into checks, allocation, the ctypes call
@@ -73,7 +93,8 @@ Phases, each fatal on failure:
     memory, with the kernel and with the plain version swapped in; the
     recurrence's forward and backward inside a step; a ``torch.profiler``
     profile of a train step; the launches the optimizer's restore of
-    all-zero-gradient parameters adds to Adam's step.
+    all-zero-gradient parameters adds to Adam's step; a MELD train step at
+    [32, 80], P = 9 (median of 5, peak memory, rank-1 launches).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -135,6 +156,16 @@ DEAD = re.compile(r"^marn_cell_[fb]\.(crossatt_l2a\.Wv|crossatt_a2l\.|lstm_q0\.|
 MFCC_RTOL, MFCC_ATOL = 1e-5, 2e-4
 WAV_T, WAV_BUCKET_T = 4000, 4096  # bench.py's utterance, collate's bucket
 PREDICT_SEED = 111  # the predict CLI's default --seed, which --synthetic uses
+MELD_TEST = 280  # MELD's published test split, in dialogues
+MELD_TRAIN = 200  # train dialogues of phase 7d's pickles: 2 batches of 80 an epoch
+# the recurrence kernel's party select and scatter on a step's serial chain,
+# an estimate that no run measures: instructions a party, counted in its
+# source: the r/z thread 8 (the qmask load, 1 - m, a multiply and an FFMA;
+# the next qmask's load, a compare, two selects), then the pair thread 11
+# (the load, 1 - m, two multiplies and two FFMAs; the load, a compare, three
+# selects); a warp issues one a clock at the data sheet's boost clock
+PARTY_CHAIN_INSTR = 8 + 11
+SM_CLOCK = 1.98e9  # H100 SXM boost clock (data sheet)
 
 
 def check(cond, msg):
@@ -184,7 +215,7 @@ def ptxas_summary(log):
     for name, body in re.findall(
             r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*: Compiling|\Z)",
             log, re.S):
-        short = re.search(r"\d+([a-z_]+kernel(?:IL[ib]\d+E)?)", name)
+        short = re.search(r"\d+([a-z_]+kernel(?:I(?:L[ib]\d+E)+)?)", name)
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         lines.append(f"{short.group(1) if short else name}: "
@@ -194,17 +225,18 @@ def ptxas_summary(log):
     return lines
 
 
-def recurrence_inputs(np, torch, T, B, seed, dev, padded_row=None):
-    """Seeded kernel inputs at full width (H = 128), scaled like the
-    recurrence's real inputs, with a padded tail (all-zero qmask) on the
-    later half of the rows; row ``padded_row`` is padded at every step."""
+def recurrence_inputs(np, torch, T, B, seed, dev, padded_row=None, P=2):
+    """Seeded kernel inputs at full width (H = 128) for P parties, scaled
+    like the recurrence's real inputs, with a padded tail (all-zero qmask)
+    on the later half of the rows; row ``padded_row`` is padded at every
+    step."""
     H = 128
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(
         (0.1 * rng.standard_normal(s)).astype(np.float32)).to(dev)
     lengths = rng.integers(max(1, T // 2), T + 1, size=B)
-    sp = rng.integers(0, 2, size=(T, 2, B))
-    qm = np.zeros((T, 2, B, 2), np.float32)
+    sp = rng.integers(0, P, size=(T, 2, B))
+    qm = np.zeros((T, 2, B, P), np.float32)
     qm[np.arange(T)[:, None, None], np.arange(2)[None, :, None],
        np.arange(B)[None, None, :], sp] = 1
     qm *= (np.arange(T)[:, None] < lengths[None, :])[:, None, :, None]
@@ -221,10 +253,15 @@ def recurrence_bound(seqs, consts, out):
     """Least time for the recurrence: each input read once, the output
     written once; per (step, direction, row) the GRU h-side product
     2*H*3H, both LSTHM products 2*2*3H*4H, the attention 5*H*H (multiply,
-    subtract, exp, multiply-add, add) and the s dot 2*H."""
-    T, _, B = seqs[0].shape[:3]
+    subtract, exp, multiply-add, add), the s dot 2*H, and the P-party work
+    the function needs: the scatter of the P party memories of H units, 3
+    flops each (1 - m, a multiply, an FFMA, ``ops/masking.py::
+    scatter_parties``), and P - 1 compares to select a row's party (the
+    product of the selected memory with gWhh is the GRU's, counted above)."""
+    T, _, B, P = seqs[3].shape
     H = 128
-    flops = T * 2 * B * (2 * H * 3 * H + 4 * 3 * H * 4 * H + 5 * H * H + 2 * H)
+    party = 3 * P * H + P - 1
+    flops = T * 2 * B * (2 * H * 3 * H + 4 * 3 * H * 4 * H + 5 * H * H + 2 * H + party)
     nbytes = sum(t.numel() * t.element_size() for t in (*seqs, *consts, out))
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -507,6 +544,32 @@ def score_lines(path):
     return [line for line in Path(path).read_text().splitlines() if " —— epoch " in line]
 
 
+def run_quiet(fn, *args):
+    """``fn(*args)`` with its standard output caught; returns that output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue()
+
+
+def in_dir(path, fn, *args):
+    """``fn(*args)`` from the working directory ``path``."""
+    here = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn(*args)
+    finally:
+        os.chdir(here)
+
+
+def state_arrays(np, path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
 def rank1_timings(torch, card, dev, rank1_kernel, rank1_seed):
     """Phase 8's readings of the rank-1 kernel at [2, TRAIN_B, 128], p = 0.2,
     printed, and ``(wrapper ms of a pair, plain ms, bound, SDPA ms of a
@@ -639,7 +702,9 @@ def main() -> int:
     from ser_tpu_torch.compat.from_jax import to_jax_params
     from ser_tpu_torch.data.frontend import MFCCFrontend
     from ser_tpu_torch.data.loaders import get_loaders
+    from ser_tpu_torch import predict as predict_cli
     from ser_tpu_torch.data.synthetic import (generate_iemocap_pickles,
+                                              generate_meld_pickles,
                                               iemocap_eval_batch,
                                               synthetic_batch)
     from ser_tpu_torch.device import disable_tf32
@@ -650,12 +715,13 @@ def main() -> int:
     from ser_tpu_torch.ops.kernels import rank1 as rank1_kernel
     from ser_tpu_torch.ops.kernels.build import build
     from ser_tpu_torch.ops.kernels.lsthm import (
-        CLUSTER, NAME, TILE_ROWS, choose_tiling, launch_exchange_rounds,
+        CLUSTER, NAME, PARTIES, TILE_ROWS, choose_tiling, launch_exchange_rounds,
         lsthm_onlysp_recurrence_bidir, lsthm_onlysp_recurrence_bidir_ref,
         occupancy)
     from ser_tpu_torch.ops.layers import Dropout
     from ser_tpu_torch.ops.mfcc import MFCCConfig, mfcc, mfcc_ref
     from ser_tpu_torch.serving import Predictor
+    from ser_tpu_torch.train import __main__ as train_cli
     from ser_tpu_torch.train.metrics import weighted_accuracy
     from ser_tpu_torch.train.trainer import ModelTrainer
 
@@ -679,6 +745,10 @@ def main() -> int:
     for name in (NAME, MFCC, RANK1):
         for line in ptxas_summary(logs.get(name, "")):
             print(f"[build]   {name}: {line}")
+    rec_lines = ptxas_summary(logs[NAME])
+    spilled = [line for line in rec_lines if "spill stores 0 B, loads 0 B" not in line]
+    check(len(rec_lines) == 2 * len(PARTIES) * len(TILE_ROWS) and not spilled,
+          f"{NAME}: {len(rec_lines)} instantiations read, spills in {spilled}")
     cfg = MFCCFrontend().cfg  # the path's 64 mels, 50 coefficients
     mfcc_smem, mfcc_blocks = mfcc_kernel.occupancy(cfg)
     print(f"[build]   {MFCC}: tiles of {mfcc_kernel.TILE_FRAMES} frames, "
@@ -686,10 +756,12 @@ def main() -> int:
           f"an SM on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     check(mfcc_blocks >= 1, f"an SM holds no block of the {MFCC} kernel")
     max_clusters = occupancy()[1]
-    print(f"[build]   {NAME}: clusters of {CLUSTER} CTAs, {max_clusters} resident "
-          "at once; dynamic shared memory a CTA by rows a cluster: " + ", ".join(
-              f"{rows}: {occupancy(rows)[0]} B" for rows in TILE_ROWS))
-    check(max_clusters >= 1, f"the card holds no cluster of {CLUSTER} CTAs")
+    print(f"[build]   {NAME}: clusters of {CLUSTER} CTAs; dynamic shared memory a CTA "
+          "and resident clusters by (parties, rows a cluster): " + ", ".join(
+              f"({P}, {rows}): {occupancy(rows, P)[0]} B, {occupancy(rows, P)[1]}"
+              for P in PARTIES for rows in TILE_ROWS))
+    check(min(occupancy(rows, P)[1] for P in PARTIES for rows in TILE_ROWS) >= 1,
+          f"the card holds no cluster of {CLUSTER} CTAs of some instantiation")
     r1_occ = rank1_kernel.occupancy()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for part in ("fwd", "bwd"):
@@ -710,6 +782,25 @@ def main() -> int:
     #    steps sum in another order than the plain version's matmuls): B on
     #    both sides of every tile height, one step, a fully padded row; every
     #    launch synchronised, so a fault in a cluster write shows here
+    def hold(seqs, consts, what):
+        """The kernel twice and its plain version on one input: finite,
+        within atol 1e-4, bit-equal twice; returns max |kernel - plain|."""
+        B, P = seqs[3].shape[2:]
+        rows, tiles = choose_tiling(B, occupancy(parties=P)[1])
+        got = lsthm_onlysp_recurrence_bidir(seqs, consts)
+        torch.cuda.synchronize()
+        again = lsthm_onlysp_recurrence_bidir(seqs, consts)
+        torch.cuda.synchronize()
+        want = lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
+        err = (got - want).abs().max().item()
+        print(f"[kernel] {what}: {rows} rows a cluster, {2 * tiles} clusters, "
+              f"max|kernel-plain| = {err:.3e}, two runs bit-equal: "
+              f"{torch.equal(got, again)}")
+        check(torch.isfinite(got).all().item(), f"non-finite kernel output, {what}")
+        check(err <= 1e-4, f"kernel disagrees with plain version, {what}")
+        check(torch.equal(got, again), f"two runs of one input differ, {what}")
+        return err
+
     max_err = 0.0
     for T_k, B, padded_row in ((110, 1, None), (110, 8, None), (110, 9, None),
                                (110, 12, None), (110, 13, None), (110, 31, None),
@@ -717,22 +808,8 @@ def main() -> int:
                                (1, 31, None), (110, 31, 5)):
         seqs, consts = recurrence_inputs(np, torch, T_k, B, seed=B, dev=dev,
                                          padded_row=padded_row)
-        rows, tiles = choose_tiling(B, max_clusters)
-        got = lsthm_onlysp_recurrence_bidir(seqs, consts)
-        torch.cuda.synchronize()
-        again = lsthm_onlysp_recurrence_bidir(seqs, consts)
-        torch.cuda.synchronize()
-        want = lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        what = f"B={B:3d} T={T_k}" + (
-            "" if padded_row is None else f" row {padded_row} padded")
-        print(f"[kernel] {what}: {rows} rows a cluster, {2 * tiles} clusters, "
-              f"max|kernel-plain| = {err:.3e}, two runs bit-equal: "
-              f"{torch.equal(got, again)}")
-        check(torch.isfinite(got).all().item(), f"non-finite kernel output, {what}")
-        check(err <= 1e-4, f"kernel disagrees with plain version, {what}")
-        check(torch.equal(got, again), f"two runs of one input differ, {what}")
+        max_err = max(max_err, hold(seqs, consts, f"B={B:3d} T={T_k}" + (
+            "" if padded_row is None else f" row {padded_row} padded")))
 
     # 3b. MFCC kernel against its plain version, |err| <= MFCC_ATOL +
     #     MFCC_RTOL*|plain|; every shape twice for bit-equal outputs; all-zero
@@ -779,6 +856,41 @@ def main() -> int:
         if name == "all_zero_rows":
             check(torch.equal(got, want),
                   "all-zero rows differ from the plain version's padded features")
+
+    # 3c. the recurrence kernel at P = 9: random inputs, a fully padded row
+    #     and an all-zero qmask mid-sequence; then the MELD request shapes,
+    #     the test split collated at batch 80, through a 7-class model
+    p9_err = 0.0
+    for T_k, B, padded_row in ((32, 1, None), (32, 16, None), (32, 80, None),
+                               (110, 31, None), (32, 16, 5)):
+        seqs, consts = recurrence_inputs(np, torch, T_k, B, seed=B, dev=dev,
+                                         padded_row=padded_row, P=9)
+        what = f"P=9 B={B:3d} T={T_k}"
+        if padded_row is not None:
+            seqs[3][5:9, :, 9] = 0.0
+            what += f" row {padded_row} padded, row 9 all-zero at steps 5-8"
+        p9_err = max(p9_err, hold(seqs, consts, what))
+    meld_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_meld_")
+    meld_path = generate_meld_pickles(meld_tmp.name, n_train=MELD_TRAIN,
+                                      n_test=MELD_TEST, seed=PREDICT_SEED)
+    meld_loaders = lambda n_classes: get_loaders(
+        meld_path, dataset="MELD", valid=0.2, batch_size=TRAIN_B,
+        n_classes=n_classes, seed=PREDICT_SEED)
+    meld_test = meld_loaders(7)[2]
+    gpu9 = Predictor(seed=0, device="cuda", n_classes=7)
+    meld_shapes = []
+    with torch.inference_mode():
+        for i, batch in enumerate(meld_test):
+            seqs9, consts9 = gpu9.model.recurrence_inputs(*gpu9.batch_inputs(batch))[:2]
+            meld_shapes.append(tuple(seqs9[3].shape))
+            p9_err = max(p9_err, hold(seqs9, consts9, f"MELD request {i} "
+                                      f"{list(batch['qmask'].shape)}"))
+        seqs9, consts9 = gpu9.model.recurrence_inputs(
+            *gpu9.batch_inputs(next(iter(meld_test))))[:2]
+    check(len(meld_shapes) == -(-MELD_TEST // TRAIN_B)
+          and all(s[1:] == (2, TRAIN_B, 9) for s in meld_shapes),
+          f"MELD request shapes {meld_shapes}")
+    max_err = max(max_err, p9_err)
 
     # 4. the feature path: three requests through the Predictor
     spec = get_model_spec("MARN1_onlysp")
@@ -880,6 +992,49 @@ def main() -> int:
     check(flips <= 0.001 * len(valid), "card and CPU predictions differ on "
           "more than 0.1% of the valid utterances")
 
+    # 4d. the MELD entry point in this process, card against CPU, at 7 and
+    #     3 classes on seeded checkpoints; the kernel's launches counted
+    meld_launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_meld_cli_") as tmp:
+        tmp = Path(tmp)
+        for n_classes in (7, 3):
+            ckpt = tmp / f"meld{n_classes}.npz"
+            np.savez(ckpt, **to_jax_params(Predictor(
+                seed=0, device="cpu", n_classes=n_classes).model.state_dict()))
+            argv = ["--dataset", "MELD", "--n_classes", str(n_classes),
+                    "--feature_path", meld_path, "--initial_model", str(ckpt)]
+            reports = {}
+            for d in ("cuda", "cpu"):
+                reset_launches()
+                t0 = time.perf_counter()
+                out = run_quiet(predict_cli.main, argv + [
+                    "--device", d, "--res_csv", str(tmp / f"{d}.csv")])
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                    meld_launches[n_classes] = LAUNCHES[NAME]
+                check("is not in the model" not in out and "Wrong parameter" not in out,
+                      f"MELD predict CLI ({d}) skipped checkpoint names:\n{out[:2000]}")
+                reports[d] = json.loads(out[out.index("{"):])
+                print(f"[cli] MELD, {n_classes} classes, {d}: "
+                      f"{time.perf_counter() - t0:.1f} s, {json.dumps(reports[d])}")
+            preds, labels, masks = read_res_csv(tmp / "cuda.csv")
+            cpu_preds, cpu_labels, cpu_masks = read_res_csv(tmp / "cpu.csv")
+            valid = [i for i, m in enumerate(masks) if m > 0]
+            flips = sum(preds[i] != cpu_preds[i] for i in valid)
+            print(f"[cli] MELD, {n_classes} classes: predictions differ on {flips} of "
+                  f"{len(valid)} valid utterances; {NAME} launches on the card "
+                  f"{meld_launches[n_classes]}")
+            check(labels == cpu_labels and masks == cpu_masks,
+                  "the MELD card and CPU runs read different pickles")
+            check(reports["cuda"]["n_examples"] == MELD_TEST and len(valid) > 0,
+                  "MELD predict CLI test split")
+            check(max(labels) < n_classes and max(preds) < n_classes, "MELD labels")
+            check(flips <= 0.001 * len(valid), "MELD: card and CPU predictions differ on "
+                  "more than 0.1% of the valid utterances")
+            check(meld_launches[n_classes] == len(meld_test),
+                  f"MELD predict CLI launched {NAME} {meld_launches[n_classes]} times, "
+                  f"want one a batch ({len(meld_test)})")
+
     # 5. timings
     x, qmask, umask = spec.make_inputs(eval_batch)
     xt, qt, ut = (torch.as_tensor(a, device=dev) for a in (x, qmask, umask))
@@ -902,15 +1057,49 @@ def main() -> int:
               f"{2 * tiles} clusters of {max_clusters} resident")
     bound_ms, bound_by = recurrence_bound(seqs, consts, out)
     T, _, B_rec = seqs[0].shape[:3]
-    # the chain floor: what T steps' cluster exchanges cost with no work
-    # between them, on the grid this shape runs on (20 calls' worth a launch)
+    # the chain floor, measured: what T steps' cluster exchanges cost with no
+    # work between them, on the grid this shape runs on (20 calls' worth a
+    # launch); the party select and scatter on the chain are printed apart,
+    # estimated from PARTY_CHAIN_INSTR
     rows, tiles = choose_tiling(B_rec, max_clusters)
     floor_ms = cuda_ms(torch, lambda: launch_exchange_rounds(
         20 * T, rows, tiles), warmup=1, iters=5) / 20
+    party_ms = lambda T_, P: T_ * PARTY_CHAIN_INSTR * P / SM_CLOCK * 1e3
     print(f"[time] {card} | recurrence T={T} B={B_rec}: kernel {kernel_ms:.4f} ms "
           f"({kernel_ms / T * 1e3:.2f} us/step), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), chain floor {floor_ms:.4f} ms "
-          f"(T x {floor_ms / T * 1e3:.2f} us of cluster exchanges)")
+          f"{bound_ms:.4f} ms ({bound_by}), chain floor {floor_ms:.4f} ms measured "
+          f"(T x {floor_ms / T * 1e3:.2f} us of cluster exchanges); party select and "
+          f"scatter on the chain {party_ms(T, 2):.4f} ms estimated ({PARTY_CHAIN_INSTR} "
+          f"instructions a party a step at {SM_CLOCK / 1e9:g} GHz, not measured)")
+    # the P = 9 kernel at the MELD request shape, in turns with P = 2
+    T9, _, B9 = seqs9[0].shape[:3]
+    with torch.inference_mode():
+        turns = []  # (P, ms a wrapper call, ms of device time from a CUDA graph)
+        for P_, (s_, c_) in ((2, (seqs, consts)), (9, (seqs9, consts9)),
+                             (9, (seqs9, consts9)), (2, (seqs, consts))):
+            run = lambda: lsthm_onlysp_recurrence_bidir(s_, c_)
+            turns.append((P_, cuda_ms(torch, run), cuda_graph_ms(torch, run)))
+        plain9_ms = cuda_ms(torch, lambda: lsthm_onlysp_recurrence_bidir_ref(seqs9, consts9),
+                            warmup=1, iters=5)
+        out9 = lsthm_onlysp_recurrence_bidir(seqs9, consts9)
+    kernel9_ms = statistics.median(ms for P_, ms, _ in turns if P_ == 9)
+    kernel9_dev = statistics.median(dev_ms for P_, _, dev_ms in turns if P_ == 9)
+    bound9_ms, bound9_by = recurrence_bound(seqs9, consts9, out9)
+    rows9, tiles9 = choose_tiling(B9, occupancy(parties=9)[1])
+    floor9_ms = cuda_ms(torch, lambda: launch_exchange_rounds(
+        20 * T9, rows9, tiles9, parties=9), warmup=1, iters=5) / 20
+    print(f"[time] {card} | recurrence in turns P=2 [{T}, {B_rec}], P=9 [{T9}, {B9}] "
+          "twice, P=2, ms a wrapper call and of device time: " + ", ".join(
+              f"P={P_} {ms:.4f} and {dev_ms:.4f}" for P_, ms, dev_ms in turns))
+    print(f"[time] {card} | recurrence P=9 MELD request T={T9} B={B9}: kernel "
+          f"{kernel9_ms:.4f} ms a wrapper call, {kernel9_dev:.4f} of device time "
+          f"({kernel9_dev / T9 * 1e3:.2f} us/step), 1 launch a request, "
+          f"plain {plain9_ms:.4f} ms, bound {bound9_ms:.4f} ms ({bound9_by}), chain floor "
+          f"{floor9_ms:.4f} ms measured (the exchanges, {rows9} rows a cluster, "
+          f"{2 * tiles9} clusters); party select and scatter on the chain "
+          f"{party_ms(T9, 9):.4f} ms estimated ({PARTY_CHAIN_INSTR} instructions a party "
+          f"a step at {SM_CLOCK / 1e9:g} GHz, not measured)")
+    del seqs9, consts9, out9, gpu9  # freed before phase 8 reads peak memory
     print(f"[time] {card} | predict {n_utts} utterances: {predict_ms:.4f} ms, "
           f"{n_utts / predict_ms * 1e3:.1f} utterances/s")
 
@@ -1145,6 +1334,70 @@ def main() -> int:
               f"score.txt epoch 2: Acc {scored[0]}, Fscore {scored[1]}")
         check(predicted == scored, "the predict CLI's Acc/F1 differ from score.txt's")
 
+    # 7d. exact resume on MELD through the train CLI in this process: 2
+    #     epochs with --save_state, then --resume latest to 3; 3 epochs
+    #     without a stop; the state reloaded and saved again; the kernels'
+    #     launches of the unstopped run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        tmp = Path(tmp)
+
+        def train(save, *extra):
+            args = train_cli.parser_args(
+                ["--dataset", "MELD", "--n_classes", "7", "--feature_path", meld_path,
+                 "--batch_size", str(TRAIN_B), "--save_path", str(tmp / save),
+                 "--save_state", *extra])
+            return run_quiet(in_dir, tmp, train_cli.main, args)
+
+        t0 = time.perf_counter()
+        train("stopped", "--epoch", "2")
+        snap = tmp / "epoch2.state"
+        snap.write_bytes((tmp / "stopped" / "model" / "last.state").read_bytes())
+        resumed_out = train("stopped", "--epoch", "3", "--resume", "latest")
+        check("resumed at epoch 2!" in resumed_out, "the train CLI did not resume")
+        reset_launches()
+        train("unstopped", "--epoch", "3")
+        torch.cuda.synchronize()
+        unstopped_launches = dict(LAUNCHES)
+        print(f"[resume] MELD train CLI, 2 + 1 epochs and 3 epochs at batch {TRAIN_B}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        back = ModelTrainer(seed=0, n_classes=7)
+        saved_epoch = back.load_train_state(str(snap))
+        back.save_train_state(str(tmp / "again.state"), saved_epoch, back.history)
+        saved = state_arrays(np, snap)
+        again = state_arrays(np, tmp / "again.state")
+        same = sorted(saved) == sorted(again) and all(
+            saved[k].dtype == again[k].dtype and np.array_equal(saved[k], again[k])
+            for k in saved)
+        print(f"[resume] epoch-2 state ({len(saved)} arrays: parameters, Adam moments and "
+              f"steps, epoch, generator, history) loaded into a trainer on the card and "
+              f"saved again: bit-equal {same}")
+        check(saved_epoch == 2 and same, "the reloaded train state differs from the saved one")
+        resumed = state_arrays(np, tmp / "stopped" / "model" / "last.state")
+        unstopped = state_arrays(np, tmp / "unstopped" / "model" / "last.state")
+        diff = {k: float(np.abs(resumed[k].astype(np.float64) - unstopped[k]).max())
+                for k in unstopped if k.startswith(("params/", "opt/"))}
+        worst = max(diff, key=diff.get)
+        param_diff = max(v for k, v in diff.items() if k.startswith("params/"))
+        gen_equal = np.array_equal(resumed["extra/generator"], unstopped["extra/generator"])
+        lines = {k: [line.split(" —— ", 1)[1] for line in score_lines(tmp / k / "score.txt")]
+                 for k in ("stopped", "unstopped")}
+        print(f"[resume] resumed against unstopped after epoch 3: largest |parameter "
+              f"difference| {param_diff:.3e}, over parameters and Adam state "
+              f"{diff[worst]:.3e} ({worst}); generator equal {gen_equal}; score.txt "
+              f"epoch lines equal {lines['stopped'] == lines['unstopped']}")
+        for line in lines["unstopped"]:
+            print(f"[resume]   score.txt: {line}")
+        check(len(lines["unstopped"]) == 3, "the unstopped MELD run wrote no 3 score lines")
+        meld_train = meld_loaders(7)[0]
+        Ts = [b["qmask"].shape[0] for _ in range(3) for b in meld_train]
+        print(f"[resume] unstopped run: {len(Ts)} steps (T {Ts}), launches "
+              f"{unstopped_launches}")
+        check(unstopped_launches.get(RANK1, 0) == 2 * sum(Ts),
+              f"{RANK1} launches {unstopped_launches.get(RANK1)}, want 2 a step's T")
+        check(unstopped_launches.get(NAME, 0) == 3 * len(meld_test),
+              f"{NAME} launches {unstopped_launches.get(NAME)}, want one an eval batch")
+    del back
+
     # 8. train timings: the rank-1 kernel, a whole step with it and with the
     #    plain version swapped in, the recurrence inside a step, a profile
     rank1_ms, r1_plain_ms, rb, sdpa_pair_ms = rank1_timings(
@@ -1222,13 +1475,38 @@ def main() -> int:
           f"torch.optim.Adam {opt_launches[0]} CUDA launches, the port's Adam "
           f"{opt_launches[1]}; the restore adds {opt_launches[1] - opt_launches[0]}")
 
+    # a MELD train step at [32, 80], P = 9: median of 5, peak memory, launches
+    del step_trainer, step, model, params, opt
+    meld_batch = next(iter(meld_loaders(7)[0]))
+    check(meld_batch["qmask"].shape == (32, TRAIN_B, 9), "MELD train batch shape")
+    meld_trainer = ModelTrainer(seed=0, lr=TRAIN_LR, n_classes=7)
+    meld_step = lambda: meld_trainer._train_step_impl(meld_batch, TRAIN_LR)
+    meld_step()
+    torch.cuda.synchronize()
+    reset_launches()
+    meld_step()
+    torch.cuda.synchronize()
+    meld_step_launches = dict(LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    meld_step_ms = [cuda_ms(torch, meld_step, warmup=0, iters=5) for _ in range(2)]
+    print(f"[time] {card} | MELD train step [32, {TRAIN_B}], P=9, 7 classes (median of 5, "
+          f"twice): {meld_step_ms} ms, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.4f} "
+          f"GiB, launches a step {meld_step_launches}")
+    check(meld_step_launches.get(RANK1, 0) == 2 * 32,
+          f"a MELD step launched {RANK1} {meld_step_launches.get(RANK1)} times, want 64")
+    meld_tmp.cleanup()
+
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
         "source": "ser_tpu_torch/csrc/lsthm_onlysp.cu",
         "replaces": "ser_tpu/ops/pallas/lsthm.py:296",
         "launches": main_launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "bound_by": bound_by, "library_ms": None,
+        "p9_launches": meld_launches[7], "p9_max_abs_err": p9_err,
+        "p9_ms": kernel9_ms, "p9_device_ms": kernel9_dev, "p9_plain_ms": plain9_ms,
+        "p9_bound_ms": bound9_ms,
+        "p9_bound_by": bound9_by}, {
         "name": MFCC, "route": "cuda",
         "source": "ser_tpu_torch/csrc/mfcc.cu",
         "replaces": "ser_tpu/ops/pallas/mfcc.py:152",

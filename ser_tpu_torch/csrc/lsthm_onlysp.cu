@@ -4,10 +4,13 @@
 // Replaces the Pallas kernel ser_tpu/ops/pallas/lsthm.py::
 // lsthm_onlysp_recurrence_bidir (and, with one direction, its sibling
 // lsthm_onlysp_recurrence). Same contract:
-//   seqs   xl, xa [T,2,B,4H], gx [T,2,B,3H], qm [T,2,B,2]
+//   seqs   xl, xa [T,2,B,4H], gx [T,2,B,3H], qm [T,2,B,P]
 //   consts Kl, Ka [2,3H,4H] (rows h|z|h_s), bl, ba [2,4H], gWhh [2,H,3H],
 //          gbhh [2,3H], wq, wk [2,H]
-//   out    [T,2,B,4H] = [h_l | h_a | z | h_s] per step; f32, H = 128, P = 2.
+//   out    [T,2,B,4H] = [h_l | h_a | z | h_s] per step; f32, H = 128.
+// P, the number of parties, is a template parameter: 2 (IEMOCAP) and 9
+// (MELD) are compiled. The Pallas kernels take P = 2 only; the JAX package
+// runs P = 9 through lax.scan, whose math this is.
 //
 // What bounds it on an H100: a serial chain of T steps, each a few small
 // products that depend on the step before. At the IEMOCAP eval shape
@@ -61,7 +64,14 @@
 //   same scatter to it with X = h_s(t) @ gWhh: P_p <- P_p (1 - m_p) + X m_p.
 //   For a one-hot or zero qmask this is exactly the product of the scattered
 //   memory. The party memories of the own units (the GRU's z gate needs
-//   qs0 itself) live in registers too.
+//   qs0 itself) live in registers too. A thread holds P of each: P products
+//   of its r/z column, and for a (row, unit) pair P products of its n
+//   column and P memories; 3P floats, 27 at P = 9, in registers (ptxas
+//   reports no spill, chip_smoke.py prints it). The scatter runs over all P
+//   parties with the raw qmask; the select is argmax with the first index
+//   winning on a tie (strict >, ascending p), as torch.argmax and
+//   jnp.argmax pick, so an all-zero (padded) row takes party 0. At P = 2
+//   this is the compare qmask[1] > qmask[0] the kernel always made.
 // - The products are bound by shared-memory loads, not by FFMA: a warp-wide
 //   load costs the bytes it returns to the 32 lanes, broadcast or not. So
 //   the k axis is split over the 8 warps (warp w takes k in [16w, 16w+16)
@@ -86,7 +96,8 @@
 // - Rows per cluster R = 4, 8, 12, 16 (a template over R/4): the wrapper
 //   picks the one that runs a call's clusters in the fewest waves. 16 is
 //   what fits: 110.6 KB of weights, 4 KB of state and 3 KB of partial sums a
-//   row under 227 KB.
+//   row under 227 KB, at P = 2 and at P = 9 alike (the qmask ring is
+//   3 x R x P floats, the only part of the layout that grows with P).
 // - Arithmetic stays FFMA: 4-16 rows are far below a wgmma tile's 64 and
 //   the contract is fp32 with TF32 off, so tensor cores are not the lever.
 // - Numerics: f32 throughout, expf/tanhf, no fast math. The sigmoid is
@@ -97,9 +108,10 @@
 //
 // Shared memory a CTA, in floats (x 4 bytes), R rows:
 //   weights 27,648 | h_l, h_a, h_s 2 x 128R each | c_a, z 128R each |
-//   partial sums 8 x 72R and 8 x 24R | qmask ring 6R | wq, wk 256 |
+//   partial sums 8 x 72R and 8 x 24R | qmask ring 3PR | wq, wk 256 |
 //   shares of s 16R | c_l 8R | max, min of wk 4 | 7 mbarriers 16.
-//   R = 8: 170,000 bytes; R = 16: 228,304 bytes.
+//   P = 2: R = 8 170,000 bytes, R = 16 228,304 bytes.
+//   P = 9: R = 8 170,672 bytes, R = 16 229,648 bytes (of 232,448).
 
 #include <cuda_runtime.h>
 
@@ -122,7 +134,7 @@ constexpr float kInvSqrtH = 0.08838834764831845f;  // 1 / sqrt(128)
 static_assert(NL == 4 * 16 && NG == 3 * 8, "lane tiles: 16 x 4 LSTHM, 8 x 3 GRU columns");
 static_assert(U == 8, "a unit's columns of a gate are two 16-byte loads");
 
-template <int RQ>
+template <int RQ, int P>
 struct Layout {  // offsets in floats into the dynamic shared memory
   static constexpr int R = 4 * RQ;
   static constexpr int HR = H * R;
@@ -135,8 +147,8 @@ struct Layout {  // offsets in floats into the dynamic shared memory
   static constexpr int Z = CA + HR;
   static constexpr int PS = Z + HR;         // [NW][R][SL] LSTHM partial sums; [0] the gates
   static constexpr int PG = PS + NW * R * SL;  // [NW][R][NG] GRU partial sums; [0] gates r, z
-  static constexpr int QM = PG + NW * R * NG;  // [3][R][2] qmask of steps t, t+1, t+2
-  static constexpr int WQ = QM + 6 * R;
+  static constexpr int QM = PG + NW * R * NG;  // [3][R][P] qmask of steps t, t+1, t+2
+  static constexpr int WQ = QM + 3 * R * P;
   static constexpr int WK = WQ + H;
   static constexpr int SP = WK + H;         // [C][R] every CTA's share of c_a . wq
   static constexpr int CL = SP + C * R;     // [R][U] c_l of the own pairs
@@ -245,7 +257,7 @@ __device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
   }
 }
 
-template <int RQ>
+template <int RQ, int P>
 __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
     const float* __restrict__ xl, const float* __restrict__ xa,
     const float* __restrict__ gx, const float* __restrict__ qm,
@@ -254,8 +266,9 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
     const float* __restrict__ gWhh, const float* __restrict__ gbhh,
     const float* __restrict__ wq, const float* __restrict__ wk,
     float* __restrict__ out, int T, int B) {
-  using L = Layout<RQ>;
+  using L = Layout<RQ, P>;
   constexpr int R = L::R, HR = L::HR;
+  static_assert(P * R <= NT, "one thread a (row, party) loads the qmask");
   // lanes that share the attention sum of one (unit, row) pair
   constexpr int LP = RQ == 1 ? 8 : RQ == 2 ? 4 : 2;
   extern __shared__ __align__(16) float sm[];
@@ -326,10 +339,10 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
     return (pair_thread && t < T && pbatch < B)
         ? gx[flat_row(t, pbatch) * GH + 2 * H + u0 + punit] : 0.f;
   };
-  const bool qm_thread = tid < 2 * R;  // loads qmask[row tid/2][party tid%2]
+  const bool qm_thread = tid < P * R;  // loads qmask[row tid/P][party tid%P]
   auto load_qm = [&](int t) {
-    const int b = b0 + tid / 2;
-    return (qm_thread && t < T && b < B) ? qm[flat_row(t, b) * 2 + tid % 2] : 0.f;
+    const int b = b0 + tid / P;
+    return (qm_thread && t < T && b < B) ? qm[flat_row(t, b) * P + tid % P] : 0.f;
   };
 
   Mbarrier* const mbar = reinterpret_cast<Mbarrier*>(sm + L::MB);
@@ -444,7 +457,7 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
   }
   if (qm_thread) {
     QM[tid] = load_qm(0);
-    QM[2 * R + tid] = load_qm(1);
+    QM[P * R + tid] = load_qm(1);
   }
   if (tid == 0) {
 #pragma unroll
@@ -473,9 +486,10 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
   cluster_sync();
 
   // Carries in registers: the pair's cell states, its own party memories and
-  // n-gate products; the r/z thread's products. P = q_p @ gWhh per party.
-  float cl = 0.f, ca = 0.f, q0 = 0.f, q1 = 0.f, pn0 = 0.f, pn1 = 0.f;
-  float prz0 = 0.f, prz1 = 0.f;
+  // n-gate products; the r/z thread's products. P_p = q_p @ gWhh per party.
+  float cl = 0.f, ca = 0.f, q[P], pn[P], prz[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) q[p] = pn[p] = prz[p] = 0.f;
   float hs_cur = 0.f;
   if (pair_thread) {  // h_s(0) from q = 0: the h side is gbhh alone
     const bool ok = pbatch < B;
@@ -521,8 +535,8 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
 
     // Activations, spread over all threads. LSTHM: x_proj + b + the 8
     // partial sums, sigmoid for f, i, o and tanh for c-hat, left in PS[0].
-    const float* const qmt = QM + (t % 3) * 2 * R;        // qmask of step t
-    const float* const qmn = QM + ((t + 1) % 3) * 2 * R;  // and of step t+1
+    const float* const qmt = QM + (t % 3) * P * R;        // qmask of step t
+    const float* const qmn = QM + ((t + 1) % 3) * P * R;  // and of step t+1
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       float* const p = PS + ir[i] * SL + ij[i];
@@ -540,10 +554,17 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
       float x = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) x += p[w * R * NG];
-      const float m0 = qmt[2 * rz_r], m1 = qmt[2 * rz_r + 1];
-      prz0 = prz0 * (1.f - m0) + x * m0;
-      prz1 = prz1 * (1.f - m1) + x * m1;
-      const float ps = (qmn[2 * rz_r + 1] > qmn[2 * rz_r]) ? prz1 : prz0;
+      const float* const mt = qmt + P * rz_r;
+      const float* const mn = qmn + P * rz_r;
+#pragma unroll
+      for (int k = 0; k < P; ++k) prz[k] = prz[k] * (1.f - mt[k]) + x * mt[k];
+      float best = mn[0], ps = prz[0];
+#pragma unroll
+      for (int k = 1; k < P; ++k)
+        if (mn[k] > best) {
+          best = mn[k];
+          ps = prz[k];
+        }
       *p = sigmoid(grz + (rz_bias + ps));
     }
     __syncthreads();
@@ -569,18 +590,27 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
         share += __shfl_xor_sync(0xffffffffu, share, off);
       if (punit == 0) SP[rank * R + prow] = share;
 
-      const float m0 = qmt[2 * prow], m1 = qmt[2 * prow + 1];
-      const bool party1 = qmn[2 * prow + 1] > qmn[2 * prow];
+      const float* const mt = qmt + P * prow;
+      const float* const mn = qmn + P * prow;
       const float* const gg = PG + prow * NG + punit;  // r, z, partial n at stride U
       float x = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) x += gg[w * R * NG + 2 * U];
-      pn0 = pn0 * (1.f - m0) + x * m0;
-      pn1 = pn1 * (1.f - m1) + x * m1;
-      q0 = q0 * (1.f - m0) + hs_cur * m0;
-      q1 = q1 * (1.f - m1) + hs_cur * m1;
-      const float n = tanhf(gn + gg[0] * (n_bias + (party1 ? pn1 : pn0)));
-      hs_next = (1.f - gg[U]) * n + gg[U] * (party1 ? q1 : q0);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        pn[k] = pn[k] * (1.f - mt[k]) + x * mt[k];
+        q[k] = q[k] * (1.f - mt[k]) + hs_cur * mt[k];
+      }
+      float best = mn[0], pns = pn[0], qs = q[0];
+#pragma unroll
+      for (int k = 1; k < P; ++k)
+        if (mn[k] > best) {
+          best = mn[k];
+          pns = pn[k];
+          qs = q[k];
+        }
+      const float n = tanhf(gn + gg[0] * (n_bias + pns));
+      hs_next = (1.f - gg[U]) * n + gg[U] * qs;
       HS[((t + 1) & 1) * HR + pe] = hs_next;
       if (pbatch < B) {
         float* const o = out + flat_row(t, pbatch) * G + u0 + punit;
@@ -612,7 +642,7 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
     send_units<R>(Z, mbar_b, rank, tid);
     mbarrier_wait(mbar_a2, parity);
     early_products(t + 1);
-    if (qm_thread) QM[((t + 2) % 3) * 2 * R + tid] = qnext;
+    if (qm_thread) QM[((t + 2) % 3) * P * R + tid] = qnext;
 #pragma unroll
     for (int i = 0; i < RQ; ++i) xcur[i] = xnext[i];
     grz = grz_next;
@@ -628,9 +658,9 @@ __global__ void __launch_bounds__(NT, 1) lsthm_onlysp_cluster_kernel(
 // mbarrier waits and the block barriers before them, placed as in the
 // kernel above. Its time over `rounds` is the chain floor of one step: what
 // the synchronisation alone costs.
-template <int RQ>
+template <int RQ, int P>
 __global__ void __launch_bounds__(NT, 1) exchange_rounds_kernel(int rounds) {
-  using L = Layout<RQ>;
+  using L = Layout<RQ, P>;
   constexpr int R = L::R, HR = L::HR;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
@@ -693,8 +723,8 @@ cudaError_t cluster_config(K kernel, int smem, int tiles, cudaStream_t stream,
   return cudaSuccess;
 }
 
-template <int RQ>
-constexpr int kSmemBytes = (int)sizeof(float) * Layout<RQ>::FLOATS;
+template <int RQ, int P>
+constexpr int kSmemBytes = (int)sizeof(float) * Layout<RQ, P>::FLOATS;
 
 // Calls f with rows / 4 as a compile-time constant; -1 where `rows` is not
 // a compiled tile height.
@@ -709,56 +739,72 @@ int for_rows(int rows, F f) {
   return -1;
 }
 
+// Calls f with rows / 4 and the party count as compile-time constants; -1
+// where either is not compiled.
+template <typename F>
+int for_tile(int parties, int rows, F f) {
+  if (parties == 2) return for_rows(rows, [&](auto rq) {
+    return f(rq, std::integral_constant<int, 2>{});
+  });
+  if (parties == 9) return for_rows(rows, [&](auto rq) {
+    return f(rq, std::integral_constant<int, 9>{});
+  });
+  return -1;
+}
+
 }  // namespace
 
-// Launches on `stream` with `rows` batch rows a cluster (4, 8, 12, 16) on
-// `tiles` clusters a direction, and returns the CUDA error of the launch;
-// never synchronises. -1: `rows` is not a compiled tile height.
+// Launches on `stream` for `parties` parties (2, 9) with `rows` batch rows
+// a cluster (4, 8, 12, 16) on `tiles` clusters a direction, and returns the
+// CUDA error of the launch; never synchronises. -1: `parties` or `rows` is
+// not compiled.
 extern "C" int lsthm_onlysp_bidir(
     const float* xl, const float* xa, const float* gx, const float* qm,
     const float* Kl, const float* bl, const float* Ka, const float* ba,
     const float* gWhh, const float* gbhh, const float* wq, const float* wk,
-    float* out, int T, int B, int rows, int tiles, void* stream) {
-  return for_rows(rows, [&](auto rq) {
-    constexpr int RQ = decltype(rq)::value;
+    float* out, int T, int B, int parties, int rows, int tiles, void* stream) {
+  return for_tile(parties, rows, [&](auto rq, auto pp) {
+    constexpr int RQ = decltype(rq)::value, P = decltype(pp)::value;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(lsthm_onlysp_cluster_kernel<RQ>, kSmemBytes<RQ>,
+    cudaError_t err = cluster_config(lsthm_onlysp_cluster_kernel<RQ, P>, kSmemBytes<RQ, P>,
                                      tiles, (cudaStream_t)stream, &cfg, &attr);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, lsthm_onlysp_cluster_kernel<RQ>, xl, xa, gx, qm,
+    err = cudaLaunchKernelEx(&cfg, lsthm_onlysp_cluster_kernel<RQ, P>, xl, xa, gx, qm,
                              Kl, bl, Ka, ba, gWhh, gbhh, wq, wk, out, T, B);
     return err != cudaSuccess ? err : cudaGetLastError();
   });
 }
 
 // Shared memory a CTA and the number of 16-CTA clusters the card holds at
-// once, for the kernel with `rows` rows a cluster.
-extern "C" int lsthm_onlysp_occupancy(int rows, int* smem_bytes, int* max_clusters) {
-  return for_rows(rows, [&](auto rq) {
-    constexpr int RQ = decltype(rq)::value;
+// once, for the kernel of `parties` parties with `rows` rows a cluster.
+extern "C" int lsthm_onlysp_occupancy(int parties, int rows, int* smem_bytes,
+                                      int* max_clusters) {
+  return for_tile(parties, rows, [&](auto rq, auto pp) {
+    constexpr int RQ = decltype(rq)::value, P = decltype(pp)::value;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    *smem_bytes = kSmemBytes<RQ>;
-    cudaError_t err = cluster_config(lsthm_onlysp_cluster_kernel<RQ>, kSmemBytes<RQ>, 1,
-                                     nullptr, &cfg, &attr);
+    *smem_bytes = kSmemBytes<RQ, P>;
+    cudaError_t err = cluster_config(lsthm_onlysp_cluster_kernel<RQ, P>, kSmemBytes<RQ, P>,
+                                     1, nullptr, &cfg, &attr);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveClusters(max_clusters,
-                                          lsthm_onlysp_cluster_kernel<RQ>, &cfg);
+                                          lsthm_onlysp_cluster_kernel<RQ, P>, &cfg);
   });
 }
 
 // `rounds` steps' worth of cluster exchanges and barriers with no work
 // between them, on the grid the recurrence would use.
-extern "C" int lsthm_onlysp_exchange_rounds(int rounds, int rows, int tiles, void* stream) {
-  return for_rows(rows, [&](auto rq) {
-    constexpr int RQ = decltype(rq)::value;
+extern "C" int lsthm_onlysp_exchange_rounds(int rounds, int parties, int rows, int tiles,
+                                            void* stream) {
+  return for_tile(parties, rows, [&](auto rq, auto pp) {
+    constexpr int RQ = decltype(rq)::value, P = decltype(pp)::value;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(exchange_rounds_kernel<RQ>, kSmemBytes<RQ>, tiles,
+    cudaError_t err = cluster_config(exchange_rounds_kernel<RQ, P>, kSmemBytes<RQ, P>, tiles,
                                      (cudaStream_t)stream, &cfg, &attr);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, exchange_rounds_kernel<RQ>, rounds);
+    err = cudaLaunchKernelEx(&cfg, exchange_rounds_kernel<RQ, P>, rounds);
     return err != cudaSuccess ? err : cudaGetLastError();
   });
 }

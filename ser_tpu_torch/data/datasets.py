@@ -1,5 +1,5 @@
-"""IEMOCAP reader for the reference pickle schemas (counterpart of
-``ser_tpu/data/datasets.py::IEMOCAPDataset``).
+"""IEMOCAP and MELD readers for the reference pickle schemas (counterparts
+of ``ser_tpu/data/datasets.py::IEMOCAPDataset`` and ``MELDDataset``).
 
 - Main pickle: 9-tuple (videoIDs, videoSpeakers, videoLabels, videoText,
   videoAudio, videoVisual, videoSentence, trainVid, testVid).
@@ -11,6 +11,15 @@
 
 Items are plain numpy arrays: (r1, r2, r3, r4, visual, audio, qmask, umask,
 label, vid[, wav]). Labels: {hap 0, sad 1, neu 2, ang 3, exc 4, fru 5}.
+
+MELD: a main 9-tuple (videoIDs, videoSpeakers, videoLabels, videoText,
+videoAudio, videoSentence, trainVid, testVid, videoSentiment) and a RoBERTa
+11-tuple (speakers, emotion labels, sentiment labels, roberta1..4,
+sentences, trainIds, testIds, validIds), ``meld_features_roberta.pkl`` beside
+the main pickle by default. Items have 10 fields in the IEMOCAP order, with
+the 600-d text feature in the visual slot, the 300-d audio in the audio slot
+and the 9-party one-hot speakers as qmask; the labels are the 7 emotions or,
+at 3 classes, the sentiments (the main pickle's ninth field).
 """
 
 from __future__ import annotations
@@ -70,3 +79,49 @@ class IEMOCAPDataset:
         if self.videoWav is not None:
             item = item + (_f32(self.videoWav[vid]),)
         return item
+
+
+class MELDDataset:
+    """MELD dialogues with RoBERTa text views, at 3 or 7 classes."""
+
+    def __init__(self, path, n_classes, train=True, roberta_path=None):
+        with open(path, "rb") as f:
+            loaded = pickle.load(f, encoding="latin1")
+        if n_classes == 3:
+            (self.videoIDs, self.videoSpeakers, _, self.videoText,
+             self.videoAudio, self.videoSentence, self.trainVid,
+             self.testVid, self.videoLabels) = loaded
+        elif n_classes == 7:
+            (self.videoIDs, self.videoSpeakers, self.videoLabels,
+             self.videoText, self.videoAudio, self.videoSentence,
+             self.trainVid, self.testVid, _) = loaded
+        else:
+            raise ValueError(f"MELD supports 3 or 7 classes, got {n_classes}")
+        if roberta_path is None:
+            roberta_path = os.path.join(os.path.dirname(path),
+                                        "meld_features_roberta.pkl")
+        with open(roberta_path, "rb") as f:
+            (self.speakers, self.emotion_labels, self.sentiment_labels,
+             self.roberta1, self.roberta2, self.roberta3, self.roberta4,
+             self.sentences, self.trainIds, self.testIds,
+             self.validIds) = pickle.load(f, encoding="latin1")
+        self.keys = list(self.trainVid if train else self.testVid)
+
+    def __len__(self):
+        return len(self.keys)
+
+    def __getitem__(self, index):
+        vid = self.keys[index]
+        n = len(self.videoLabels[vid])
+        return (
+            _f32(self.roberta1[vid]),
+            _f32(self.roberta2[vid]),
+            _f32(self.roberta3[vid]),
+            _f32(self.roberta4[vid]),
+            _f32(self.videoText[vid]),
+            _f32(self.videoAudio[vid]),
+            _f32(self.videoSpeakers[vid]),
+            np.ones(n, dtype=np.float32),
+            np.asarray(self.videoLabels[vid], dtype=np.int32),
+            vid,
+        )

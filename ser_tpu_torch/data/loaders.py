@@ -5,7 +5,9 @@ The valid split is the first ``valid`` fraction of the train set's
 unshuffled index order; train and valid iterate shuffled, test in order.
 Loaders yield padded batch dicts (``collate.py``), assembled with numpy on
 the host; ``PrefetchLoader`` keeps a few ready in a background thread while
-the device computes.
+the device computes. ``advance_epochs`` burns the shuffle randomness of
+finished epochs, so a resumed run sees the batch order of the run that was
+never stopped.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import threading
 import numpy as np
 
 from ser_tpu_torch.data.collate import collate
-from ser_tpu_torch.data.datasets import IEMOCAPDataset
+from ser_tpu_torch.data.datasets import IEMOCAPDataset, MELDDataset
 
 
 class EpochLoader:
@@ -36,6 +38,13 @@ class EpochLoader:
 
     def num_examples(self):
         return len(self.indices)
+
+    def advance_epochs(self, n):
+        """Draw ``n`` epochs' shuffles without loading data: each
+        ``__iter__`` takes exactly one ``rng.shuffle`` of the indices."""
+        for _ in range(int(n)):
+            if self.shuffle:
+                self.rng.shuffle(self.indices.copy())
 
     def __iter__(self):
         order = self.indices.copy()
@@ -62,6 +71,9 @@ class PrefetchLoader:
 
     def num_examples(self):
         return self.loader.num_examples()
+
+    def advance_epochs(self, n):
+        self.loader.advance_epochs(n)
 
     def __iter__(self):
         q = queue.Queue(maxsize=self.depth)
@@ -110,22 +122,28 @@ def get_train_valid_indices(n, valid=0.1):
 
 
 def get_loaders(feature_path, dataset="IEMOCAP", batch_size=32, valid=0.1,
-                seed=0, roberta_path=None, wav_path=None):
-    """``(train, valid, test)`` loaders. ``wav_path`` is an optional
+                n_classes=3, seed=0, roberta_path=None, wav_path=None):
+    """``(train, valid, test)`` loaders. ``n_classes`` (3 or 7) picks MELD's
+    label set and is not read for IEMOCAP. ``wav_path`` is an optional
     raw-audio pickle for the MFCC front end; ``"auto"`` takes
-    ``IEMOCAP_wav.pkl`` beside the main pickle."""
-    if dataset == "MELD":
-        raise NotImplementedError(
-            "the port reads IEMOCAP only; MELD is queued (ROADMAP A.8)")
-    if dataset != "IEMOCAP":
+    ``IEMOCAP_wav.pkl`` beside the main pickle. MELD has no raw audio: its
+    loaders ignore ``wav_path``, as the JAX package's do."""
+    if dataset == "IEMOCAP":
+        path = feature_path + "IEMOCAP_features/IEMOCAP_features_raw.pkl"
+        if wav_path == "auto":
+            wav_path = os.path.join(os.path.dirname(path), "IEMOCAP_wav.pkl")
+        trainset = IEMOCAPDataset(path=path, roberta_path=roberta_path,
+                                  wav_path=wav_path)
+        testset = IEMOCAPDataset(path=path, train=False,
+                                 roberta_path=roberta_path, wav_path=wav_path)
+    elif dataset == "MELD":
+        path = feature_path + "MELD_features/MELD_features_raw.pkl"
+        trainset = MELDDataset(path=path, n_classes=n_classes,
+                               roberta_path=roberta_path)
+        testset = MELDDataset(path=path, n_classes=n_classes, train=False,
+                              roberta_path=roberta_path)
+    else:
         raise ValueError(f"unknown dataset: {dataset}")
-    path = feature_path + "IEMOCAP_features/IEMOCAP_features_raw.pkl"
-    if wav_path == "auto":
-        wav_path = os.path.join(os.path.dirname(path), "IEMOCAP_wav.pkl")
-    trainset = IEMOCAPDataset(path=path, roberta_path=roberta_path,
-                              wav_path=wav_path)
-    testset = IEMOCAPDataset(path=path, train=False,
-                             roberta_path=roberta_path, wav_path=wav_path)
     train_idx, valid_idx = get_train_valid_indices(len(trainset), valid)
     return (
         EpochLoader(trainset, train_idx, batch_size, shuffle=True, seed=seed),

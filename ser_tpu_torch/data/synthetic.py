@@ -1,11 +1,13 @@
-"""Seeded synthetic data at IEMOCAP shapes, numpy only.
+"""Seeded synthetic data at IEMOCAP and MELD shapes, numpy only.
 
-Copies of the JAX package's ``data/synthetic.py`` (``synthetic_batch`` and
-the pickle writer ``generate_iemocap_pickles`` with its raw-waveform table)
-and of ``bench.py::iemocap_eval_batch``: the same seed gives the same arrays.
-Labels follow a dialogue-level Markov chain and each modality's features are
-class prototypes plus a speaker offset plus noise, so a trained model learns
-them; the waveforms carry the class in their spectral envelope.
+Copies of the JAX package's ``data/synthetic.py`` (``synthetic_batch``, the
+pickle writers ``generate_iemocap_pickles``, with its raw-waveform table, and
+``generate_meld_pickles``) and of ``bench.py::iemocap_eval_batch``: the same
+seed gives the same arrays. IEMOCAP labels follow a dialogue-level Markov
+chain and each modality's features are class prototypes plus a speaker
+offset plus noise, so a trained model learns them; the waveforms carry the
+class in their spectral envelope. MELD dialogues draw their labels and
+speakers (9 parties) uniformly, with features from class prototypes.
 """
 
 from __future__ import annotations
@@ -171,4 +173,69 @@ def generate_iemocap_pickles(out_dir, n_train=120, n_test=31, n_classes=6,
                      rob["roberta2"], rob["roberta3"], rob["roberta4"],
                      sentences_map, trainVid[valid_split:], testVid,
                      trainVid[:valid_split]), f)
+    return out_dir.rstrip("/") + "/"
+
+
+def generate_meld_pickles(out_dir, n_train=80, n_test=20, n_classes=7,
+                          n_parties=9, min_len=5, max_len=25, seed=0):
+    """Write MELD_features_raw.pkl and meld_features_roberta.pkl under
+    ``out_dir/MELD_features/`` and return the feature path prefix: text
+    600-d, audio 300-d, one-hot speaker vectors over ``n_parties``, the
+    7-class emotion labels in the third field of the main pickle and the
+    3-class sentiment labels (emotion mod 3) in its ninth."""
+    rng = np.random.default_rng(seed)
+    dirpath = os.path.join(out_dir, "MELD_features")
+    os.makedirs(dirpath, exist_ok=True)
+
+    protos = {
+        "roberta1": 1.2 * rng.standard_normal((n_classes, 1024)),
+        "roberta2": 1.2 * rng.standard_normal((n_classes, 1024)),
+        "roberta3": 1.2 * rng.standard_normal((n_classes, 1024)),
+        "roberta4": 1.2 * rng.standard_normal((n_classes, 1024)),
+        "text": rng.standard_normal((n_classes, 600)),
+        "audio": 0.8 * rng.standard_normal((n_classes, 300)),
+    }
+    noise = {k: 2.0 for k in protos}
+
+    videoIDs, videoSpeakers, videoLabels = {}, {}, {}
+    videoText, videoAudio, videoSentence, videoSentiment = {}, {}, {}, {}
+    rob = {k: {} for k in ("roberta1", "roberta2", "roberta3", "roberta4")}
+    speakers_map, emo_map, senti_map, sentences_map = {}, {}, {}, {}
+
+    all_vids = list(range(n_train + n_test))
+    for vid in all_vids:
+        n_utt = int(rng.integers(min_len, max_len + 1))
+        labels = rng.integers(0, n_classes, size=n_utt)
+        speakers = rng.integers(0, n_parties, size=n_utt)
+        onehot = np.eye(n_parties, dtype=np.float32)[speakers]
+        videoIDs[vid] = [f"{vid}_utt{t}" for t in range(n_utt)]
+        videoSpeakers[vid] = onehot.tolist()
+        videoLabels[vid] = labels.tolist()
+        videoSentiment[vid] = (labels % 3).tolist()
+        videoSentence[vid] = [f"meld utterance {t}" for t in range(n_utt)]
+        for name in ("text", "audio"):
+            x = protos[name][labels] + noise[name] * rng.standard_normal(
+                (n_utt, protos[name].shape[1]))
+            (videoText if name == "text" else videoAudio)[vid] = \
+                x.astype(np.float32)
+        for k in rob:
+            x = protos[k][labels] + noise[k] * rng.standard_normal(
+                (n_utt, 1024))
+            rob[k][vid] = x.astype(np.float32)
+        speakers_map[vid] = videoSpeakers[vid]
+        emo_map[vid] = videoLabels[vid]
+        senti_map[vid] = videoSentiment[vid]
+        sentences_map[vid] = videoSentence[vid]
+
+    trainVid, testVid = all_vids[:n_train], all_vids[n_train:]
+    with open(os.path.join(dirpath, "MELD_features_raw.pkl"), "wb") as f:
+        pickle.dump((videoIDs, videoSpeakers, videoLabels, videoText,
+                     videoAudio, videoSentence, trainVid, testVid,
+                     videoSentiment), f)
+    valid_split = int(0.2 * len(trainVid))
+    with open(os.path.join(dirpath, "meld_features_roberta.pkl"), "wb") as f:
+        pickle.dump((speakers_map, emo_map, senti_map,
+                     rob["roberta1"], rob["roberta2"], rob["roberta3"],
+                     rob["roberta4"], sentences_map,
+                     trainVid[valid_split:], testVid, trainVid[:valid_split]), f)
     return out_dir.rstrip("/") + "/"

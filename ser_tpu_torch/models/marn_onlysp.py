@@ -61,7 +61,7 @@ class MARNCellOnlySP(nn.Module):
     def gather(self, x_l, x_a, qmask):
         """``(seqs, consts)`` of the recurrence for this direction.
 
-        x_l, x_a ``[L, B, 100]``, qmask ``[L, B, 2]``. The state weights are
+        x_l, x_a ``[L, B, 100]``, qmask ``[L, B, P]``. The state weights are
         fused as ``K = [U; V; S]`` (rows h, z, s; ``[3H, 4H]``) with
         ``b = bU + bV + bS``.
         """
@@ -119,8 +119,10 @@ def train_recurrence(seqs, consts, generator: torch.Generator,
 
 
 class MARN1OnlySP(nn.Module):
-    """MARN1_onlysp. Input x is time-major ``[L, B, 1124]`` = RoBERTa-1024
-    text | audio-100, qmask ``[L, B, 2]``, umask ``[B, L]``. Returns
+    """MARN1_onlysp. Input x is time-major ``[L, B, 1024 + d_audio]`` =
+    RoBERTa-1024 text | audio (100-d for IEMOCAP, 300-d for MELD, of which
+    the model reads the first 100), qmask ``[L, B, P]`` one-hot over the P
+    parties (2 for IEMOCAP, 9 for MELD), umask ``[B, L]``. Returns
     ``(log_probs [B*L, n_classes], x_l, x_a)`` with x_l, x_a the
     post-encoder time-major features."""
 

@@ -2,7 +2,9 @@
 
 One entry so far, the flagship ``MARN1_onlysp``. ``make_inputs`` follows the
 reference trainer: x = cat(mean of the four RoBERTa views, audio), from a
-numpy batch on the host. Where the audio front end computes ``acouf`` on the
+numpy batch on the host: 1024 + 100 wide for IEMOCAP, 1024 + 300 for MELD
+(the model reads the first 100 audio dims). The head has ``n_classes``
+outputs: 6 for IEMOCAP, 3 or 7 for MELD. Where the audio front end computes ``acouf`` on the
 device, ``text_features`` gives the host-side mean alone and ``join_inputs``
 concatenates the two tensors there.
 """

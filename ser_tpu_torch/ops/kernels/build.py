@@ -41,23 +41,26 @@ def library_path(name: str) -> Path:
 def build(names: list[str]) -> dict[str, str]:
     """Compile every source in ``names`` that is not built yet, one nvcc
     process each, all started together. Returns nvcc's output per source
-    (register and shared-memory use from ``-Xptxas -v``)."""
+    (register and shared-memory use from ``-Xptxas -v``), kept beside each
+    library for a source built before."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    jobs, logs = {}, {}
     for name in names:
         so = library_path(name)
         if so.exists():
+            log = so.with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else ""
             continue
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, so)
-    logs = {}
     for name, (proc, tmp, so) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
         logs[name] = log
     return logs

@@ -4,15 +4,18 @@ plain PyTorch version.
 Counterpart of ``ser_tpu/ops/pallas/lsthm.py::lsthm_onlysp_recurrence_bidir``
 with the same contract::
 
-    seqs   = (xl_proj, xa_proj, gru_x, qmask), each [T, 2, B, .]
+    seqs   = (xl_proj, xa_proj, gru_x, qmask), each [T, 2, B, .],
+             qmask [T, 2, B, P] one-hot over P parties
     consts = (K_l, b_l, K_a, b_a, gWhh, gbhh, wq, wk), each [2, .]
     returns  [T, 2, B, 4H] per-step outputs [h_l | h_a | z | h_s], f32
 
 The kernel is ``csrc/lsthm_onlysp.cu``: one recurrence step runs on a
 thread-block cluster of 16 CTAs that keep their slice of the weights in
 shared memory for all T steps. Its source note gives the design and what
-bounds it on the card. The wrapper decides how a batch is tiled over
-clusters from what the card holds at once (``choose_tiling``).
+bounds it on the card. It is compiled for P = 2 (IEMOCAP) and P = 9 (MELD),
+``PARTIES``; any other P is refused, never sent to the plain loop. The
+wrapper decides how a batch is tiled over clusters from what the card holds
+at once (``choose_tiling``).
 """
 
 from __future__ import annotations
@@ -29,13 +32,13 @@ from ser_tpu_torch.ops.masking import scatter_parties, select_parties
 
 NAME = "lsthm_onlysp"
 H = 128
-P = 2
+PARTIES = (2, 9)  # the kernel's compiled party counts
 CLUSTER = 16  # CTAs of a thread-block cluster; each owns H / CLUSTER units
 # The kernel's compiled tile heights (batch rows a cluster); 16 is what fits
 # an SM's shared memory beside the weights.
 TILE_ROWS = (4, 8, 12, 16)
 
-_occupancy: dict[tuple[int, int], tuple[int, int]] = {}  # by (device, rows)
+_occupancy: dict[tuple[int, int, int], tuple[int, int]] = {}  # by (device, parties, rows)
 
 
 def lsthm_onlysp_recurrence_bidir_ref(seqs, consts) -> torch.Tensor:
@@ -66,8 +69,11 @@ def lsthm_onlysp_recurrence_bidir_ref(seqs, consts) -> torch.Tensor:
 
 
 def _check(seqs, consts):
-    xl_proj = seqs[0]
+    xl_proj, P = seqs[0], seqs[3].shape[-1]
     T, D2, B = xl_proj.shape[:3]
+    if P not in PARTIES:
+        raise ValueError(f"qmask has {P} parties; the kernel is compiled for "
+                         f"P in {PARTIES}")
     want = {
         "xl_proj": (T, 2, B, 4 * H), "xa_proj": (T, 2, B, 4 * H),
         "gru_x": (T, 2, B, 3 * H), "qmask": (T, 2, B, P),
@@ -102,45 +108,48 @@ def choose_tiling(B: int, max_clusters: int) -> tuple[int, int]:
     return rows, -(-B // rows)
 
 
-def occupancy(rows: int = TILE_ROWS[-1]) -> tuple[int, int]:
+def occupancy(rows: int = TILE_ROWS[-1], parties: int = 2) -> tuple[int, int]:
     """``(shared-memory bytes a CTA, clusters of CLUSTER CTAs the current
-    card holds at once)`` for the kernel with ``rows`` rows a cluster."""
-    key = (torch.cuda.current_device(), rows)
+    card holds at once)`` for the kernel of ``parties`` parties with
+    ``rows`` rows a cluster."""
+    key = (torch.cuda.current_device(), parties, rows)
     if key not in _occupancy:
         smem, clusters = ctypes.c_int(), ctypes.c_int()
         err = _library().lsthm_onlysp_occupancy(
-            rows, ctypes.byref(smem), ctypes.byref(clusters))
+            parties, rows, ctypes.byref(smem), ctypes.byref(clusters))
         if err != 0:
-            raise RuntimeError(f"lsthm_onlysp_occupancy({rows}): CUDA error {err} "
-                               f"for a cluster of {CLUSTER}")
+            raise RuntimeError(f"lsthm_onlysp_occupancy({parties}, {rows}): CUDA "
+                               f"error {err} for a cluster of {CLUSTER}")
         _occupancy[key] = (smem.value, clusters.value)
     return _occupancy[key]
 
 
 def _launch(seqs, consts) -> torch.Tensor:
     _check(seqs, consts)
-    T, _, B = seqs[0].shape[:3]
+    T, _, B, P = seqs[3].shape
     out = torch.empty((T, 2, B, 4 * H), dtype=torch.float32,
                       device=seqs[0].device)
     with torch.cuda.device(out.device):
-        rows, tiles = choose_tiling(B, occupancy()[1])
+        rows, tiles = choose_tiling(B, occupancy(parties=P)[1])
         ptrs = [t.data_ptr() for t in (*seqs, *consts, out)]
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().lsthm_onlysp_bidir(*ptrs, T, B, rows, tiles, stream)
+        err = _library().lsthm_onlysp_bidir(*ptrs, T, B, P, rows, tiles, stream)
     if err != 0:
         raise RuntimeError(
-            f"lsthm_onlysp_bidir launch failed: CUDA error {err} (cluster of "
-            f"{CLUSTER}, {rows} rows a cluster, {2 * tiles} clusters)")
+            f"lsthm_onlysp_bidir launch failed: CUDA error {err} (P = {P}, "
+            f"cluster of {CLUSTER}, {rows} rows a cluster, {2 * tiles} clusters)")
     LAUNCHES[NAME] += 1
     return out
 
 
-def launch_exchange_rounds(rounds: int, rows: int, tiles: int) -> None:
+def launch_exchange_rounds(rounds: int, rows: int, tiles: int,
+                           parties: int = 2) -> None:
     """``rounds`` steps' worth of the kernel's cluster exchanges with no
-    work between them, on the current device and stream: timed, it gives the
-    chain floor of a step."""
+    work between them, on the current device and stream, in the shared
+    memory of the ``parties`` kernel: timed, it gives the exchanges' part of
+    a step's chain floor."""
     err = _library().lsthm_onlysp_exchange_rounds(
-        rounds, rows, tiles, torch.cuda.current_stream().cuda_stream)
+        rounds, parties, rows, tiles, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"lsthm_onlysp_exchange_rounds: CUDA error {err} "
                            f"(cluster of {CLUSTER}, {rows} rows, {2 * tiles} clusters)")
@@ -153,10 +162,11 @@ def _library() -> ctypes.CDLL:
     lib = load(NAME)
     # every pointer and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.lsthm_onlysp_bidir.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.lsthm_onlysp_occupancy.argtypes = [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.lsthm_onlysp_exchange_rounds.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.lsthm_onlysp_exchange_rounds.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn in (lib.lsthm_onlysp_bidir, lib.lsthm_onlysp_occupancy,
                lib.lsthm_onlysp_exchange_rounds):
         fn.restype = ctypes.c_int
@@ -164,9 +174,9 @@ def _library() -> ctypes.CDLL:
 
 
 def lsthm_onlysp_recurrence_bidir(seqs, consts) -> torch.Tensor:
-    """Both directions of the onlysp eval recurrence. On a CUDA tensor this
-    launches the kernel (or raises); on a CPU tensor it runs the plain
-    version."""
+    """Both directions of the onlysp eval recurrence for P parties. On a
+    CUDA tensor this launches the kernel (or raises, for a P it was not
+    compiled for among others); on a CPU tensor it runs the plain version."""
     dev = seqs[0].device
     if dev.type == "cuda":
         return _launch(seqs, consts)

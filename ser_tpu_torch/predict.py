@@ -6,11 +6,17 @@ the metrics as JSON (counterpart of the JAX package's ``predict.py`` and of
         --feature_path /path/to/features/ [--audio_frontend mfcc]
     python -m ser_tpu_torch.predict --synthetic --audio_frontend mfcc \\
         --initial_model CKPT.npz [--device cpu]
+    python -m ser_tpu_torch.predict --dataset MELD --n_classes 7 \\
+        --feature_path /path/to/features/ --initial_model CKPT.npz
 
 The flags are ``predict.py``'s, plus ``--device`` (default ``cuda``; without
 CUDA it raises unless given ``--device cpu``). ``--initial_model`` is the
 JAX package's ``.npz`` of flat parameter names, or with ``--torch_format`` a
-reference torch state dict; either loads tolerantly.
+reference torch state dict; either loads tolerantly. ``--synthetic`` writes
+IEMOCAP pickles, as the JAX CLI does; for MELD, point ``--feature_path`` at
+pickles from ``data.synthetic.generate_meld_pickles``. MELD carries no raw
+audio, so with ``--audio_frontend mfcc`` its loader gives ``acouf`` and the
+front end is not used.
 """
 
 from __future__ import annotations
@@ -72,10 +78,6 @@ def _check_servable(args):
     except KeyError as e:
         raise KeyError(f"{e.args[0]}; the rest of the zoo is queued "
                        "(ROADMAP A.10-A.12)") from None
-    if args.dataset == "MELD":
-        raise NotImplementedError(
-            "--dataset MELD: the port reads IEMOCAP only; MELD is queued "
-            "(ROADMAP A.8)")
 
 
 def fusion_weights(model: torch.nn.Module) -> dict:
@@ -130,8 +132,8 @@ def main(argv=None):
                 seed=args.seed, with_wav=use_frontend)
         train_loader, valid_loader, test_loader = get_loaders(
             args.feature_path, dataset=args.dataset, valid=0.2,
-            batch_size=args.batch_size, seed=args.seed,
-            roberta_path=args.roberta_path,
+            batch_size=args.batch_size, n_classes=args.n_classes,
+            seed=args.seed, roberta_path=args.roberta_path,
             wav_path="auto" if use_frontend else None)
         loader = {"test": test_loader, "valid": valid_loader,
                   "train": train_loader}[args.split]

@@ -51,9 +51,11 @@ class Predictor:
         return logp, labels
 
     def predict(self, x, qmask, umask):
-        """One padded request: x ``[L, B, 1124]``, qmask ``[L, B, 2]``,
-        umask ``[B, L]``. Returns ``(logp [B*L, C], labels [B, L])`` on the
-        predictor's device."""
+        """One padded request: x ``[L, B, 1024 + d_audio]`` (1124 for
+        IEMOCAP, 1324 for MELD), qmask ``[L, B, P]`` (P = 2 or 9, a party
+        count the recurrence kernel was compiled for), umask ``[B, L]``.
+        Returns ``(logp [B*L, C], labels [B, L])`` on the predictor's
+        device."""
         with torch.inference_mode():
             return self._answer(*(self._tensor(a) for a in (x, qmask, umask)))
 

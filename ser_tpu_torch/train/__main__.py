@@ -2,6 +2,9 @@
 
     python -m ser_tpu_torch.train --synthetic [--epoch 80] [--batch_size 80]
     python -m ser_tpu_torch.train --feature_path /path/to/features/
+    python -m ser_tpu_torch.train --dataset MELD --n_classes 7 \\
+        --feature_path /path/to/features/
+    python -m ser_tpu_torch.train --synthetic --save_state --resume latest
     python -m ser_tpu_torch.train --eval True --initial_model CKPT.npz ...
 
 The flags are ``train.py``'s, plus ``--device`` (default ``cuda``; without
@@ -9,15 +12,19 @@ CUDA it raises unless given ``--device cpu``). The epoch loop is the same:
 train, then every ``--test_step`` epochs save ``model/model_%04d.model``
 (the JAX package's ``.npz``), eval on the test split (``res.csv``) and append
 a line to ``score.txt`` with the best F1 so far; at the end the fusion
-weights of each eval go to ``parameters.csv`` in the working directory. The
-flags the port cannot honour yet are refused with the ROADMAP item that
-queues them.
+weights of each eval go to ``parameters.csv`` in the working directory.
+With ``--save_state`` every such epoch also writes ``model/last.state``;
+``--resume PATH`` (or ``latest``: that file when it exists) continues from
+one as if the run had never stopped: the same parameters, Adam state,
+generator, shuffles and F1 history. The flags the port cannot honour yet are
+refused with the ROADMAP item that queues them.
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import os
 import sys
 import tempfile
 import time
@@ -36,14 +43,11 @@ from ser_tpu_torch.utils.seeding import seed_everything
 
 # flag -> (is it set to something the port lacks, why, ROADMAP item)
 _QUEUED = {
-    "save_state": (lambda v: v, "exact-resume train state", "A.7"),
-    "resume": (lambda v: v != "", "resuming from a train state", "A.7"),
     "compute_dtype": (lambda v: v != "f32", "bf16 mixed precision", "A.9"),
     "dp": (lambda v: v, "data parallelism", "A.14"),
     "tp": (lambda v: v > 1, "tensor parallelism", "A.14"),
     "infonce": (lambda v: v > 0, "the InfoNCE and extra losses", "A.12"),
     "encoder_attention": (lambda v: v != "mha", "the attention zoo", "A.16"),
-    "dataset": (lambda v: v == "MELD", "MELD", "A.8"),
     "debug_nans": (lambda v: v, "NaN checks", "A.16"),
 }
 
@@ -92,10 +96,22 @@ def main(args):
             tmp.cleanup()
 
 
+def _resolve_resume(resume, model_save_path):
+    """``latest`` -> ``model_save_path/last.state`` when it exists, else ''
+    (a fresh start); any other value is the path itself."""
+    if resume != "latest":
+        return resume
+    path = model_save_path + "/last.state"
+    if not os.path.exists(path):
+        print(f"--resume latest: no {path} yet; starting fresh")
+        return ""
+    return path
+
+
 def _run(args, use_frontend):
-    train_loader, _, test_loader = get_loaders(
+    train_loader, valid_loader, test_loader = get_loaders(
         args.feature_path, dataset=args.dataset, valid=0.2,
-        batch_size=args.batch_size, seed=args.seed,
+        batch_size=args.batch_size, n_classes=args.n_classes, seed=args.seed,
         roberta_path=args.roberta_path,
         wav_path="auto" if use_frontend else None)
     if args.num_workers > 0:
@@ -117,12 +133,23 @@ def _run(args, use_frontend):
         print("Model %s loaded from previous state!" % args.initial_model)
         trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
 
-    fscores = []
-    w_dic = defaultdict(list)
+    start_epoch = 0
+    resume_path = _resolve_resume(args.resume, args.model_save_path)
+    if resume_path:
+        start_epoch = trainer.load_train_state(resume_path)
+        # the loaders' generators start from their seeds: draw the shuffles
+        # of the finished epochs
+        train_loader.advance_epochs(start_epoch)
+        valid_loader.advance_epochs(start_epoch)
+        print(f"Train state {resume_path} resumed at epoch {start_epoch}!")
+    fscores = list(trainer.history.get("fscores", []))
+    w_dic = defaultdict(list, {k[len("fusion/"):]: list(v)
+                               for k, v in trainer.history.items()
+                               if k.startswith("fusion/")})
     with open(args.score_save_path, "a+") as score_file:
         score_file.write(f"Model: {args.model} \nDataset : {args.dataset}\n"
                          + "-" * 20 + "\n")
-        for epoch in range(1, args.epoch + 1):
+        for epoch in range(start_epoch + 1, args.epoch + 1):
             print("-" * 10, f"epoch {epoch} training", "-" * 10)
             lr, loss = trainer.train_network(epoch, train_loader)
             if epoch % args.test_step:
@@ -139,6 +166,10 @@ def _run(args, use_frontend):
             print(time.strftime("%Y-%m-%d %H:%M:%S"), line)
             score_file.write(time.strftime("%Y-%m-%d %H:%M:%S") + f" —— {line}\n")
             score_file.flush()
+            if args.save_state:  # after the eval, so the F1 history is whole
+                trainer.save_train_state(
+                    args.model_save_path + "/last.state", epoch,
+                    {"fscores": fscores, **{f"fusion/{k}": v for k, v in w_dic.items()}})
         if args.export_torch:
             trainer.export_parameters_torch(args.export_torch)
             print(f"Exported reference-format checkpoint: {args.export_torch}")
@@ -174,8 +205,13 @@ def parser_args(argv=None):
     p.add_argument("--dp", action="store_true")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--debug_nans", action="store_true")
-    p.add_argument("--save_state", action="store_true")
-    p.add_argument("--resume", type=str, default="")
+    p.add_argument("--save_state", action="store_true",
+                   help="also write model/last.state every test_step epochs: "
+                        "parameters, Adam state, epoch, generator, F1 history")
+    p.add_argument("--resume", type=str, default="",
+                   help="a .state file from --save_state, or 'latest' for "
+                        "save_path's model/last.state when it exists (a fresh "
+                        "start otherwise)")
     p.add_argument("--export_torch", type=str, default="",
                    help="also write the parameters as a reference-layout "
                         "torch state dict")

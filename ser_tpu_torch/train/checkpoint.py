@@ -18,6 +18,16 @@ with a print, a shape mismatch is skipped with a print, and a leading
   trainer's ``state_dict()``), whose keys are the port's own.
 
 Parameters the file does not carry keep their current values.
+
+``save_train_state`` / ``load_train_state`` (counterparts of the JAX
+package's functions of the same names) keep what an exact resume needs in
+one ``.npz`` of the port's own, written atomically: ``params/<key>`` for
+every parameter, by its reference key; ``opt/<key>/{exp_avg, exp_avg_sq,
+step}``, Adam's state; and ``extra/<name>`` arrays (the epoch, the
+generator's state). A parameter that Adam has never stepped (a dead one:
+its ``.grad`` stays None) is written with zero moments and step 0, and
+loads back with no state, as torch's Adam leaves it. The load is strict:
+a missing or misshapen parameter or optimizer leaf raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -59,19 +69,79 @@ def _place_torch(name, value, own):
     return None
 
 
-def save_parameters(model: torch.nn.Module, path) -> None:
-    """Write ``model``'s parameters to ``path`` as the JAX package's
-    ``save_parameters`` does (``np.savez`` of the flat names, atomically)."""
+def _atomic_savez(path, arrays: dict) -> None:
+    """``np.savez`` of ``arrays`` to ``path`` through a temporary file,
+    ``fsync`` and ``os.replace``: an interrupted save leaves the old file or
+    the new one, never a truncated one."""
     path = os.fspath(path)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     buf = io.BytesIO()
-    np.savez(buf, **to_jax_params(model.state_dict()))
+    np.savez(buf, **arrays)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(buf.getvalue())
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def save_parameters(model: torch.nn.Module, path) -> None:
+    """Write ``model``'s parameters to ``path`` as the JAX package's
+    ``save_parameters`` does (``np.savez`` of the flat names, atomically)."""
+    _atomic_savez(path, to_jax_params(model.state_dict()))
+
+
+_ADAM_LEAVES = ("exp_avg", "exp_avg_sq", "step")
+
+
+def save_train_state(path, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, extra: dict) -> None:
+    """Write the parameters, Adam's state and ``extra`` (name -> array) to
+    ``path`` for an exact resume."""
+    flat = {}
+    for key, p in model.named_parameters():
+        value = p.detach().cpu().numpy()
+        flat[f"params/{key}"] = value
+        state = optimizer.state.get(p) or {
+            "exp_avg": np.zeros_like(value), "exp_avg_sq": np.zeros_like(value),
+            "step": np.float32(0)}
+        for leaf in _ADAM_LEAVES:
+            v = state[leaf]
+            flat[f"opt/{key}/{leaf}"] = (v.detach().cpu().numpy()
+                                         if torch.is_tensor(v) else np.asarray(v))
+    for name, value in extra.items():
+        flat[f"extra/{name}"] = np.asarray(value)
+    _atomic_savez(path, flat)
+
+
+def load_train_state(path, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> dict:
+    """Restore what ``save_train_state`` wrote into ``model`` and
+    ``optimizer``; return the ``extra`` arrays by name."""
+    with np.load(path, allow_pickle=False) as z:
+        loaded = {k: z[k] for k in z.files}
+    index = {id(p): i for i, p in enumerate(
+        p for group in optimizer.param_groups for p in group["params"])}
+    params, state = {}, {}
+    for key, p in model.named_parameters():
+        names = [f"params/{key}"] + [f"opt/{key}/{leaf}" for leaf in _ADAM_LEAVES]
+        missing = [n for n in names if n not in loaded]
+        if missing:
+            raise ValueError(f"train-state file {path} lacks {missing}")
+        for name in names[:3]:
+            if loaded[name].shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {loaded[name].shape} in {path}, "
+                                 f"model has {tuple(p.shape)}")
+        params[key] = torch.from_numpy(loaded[names[0]])
+        if loaded[names[3]] != 0:  # Adam has stepped this parameter
+            state[index[id(p)]] = {leaf: torch.from_numpy(loaded[n])
+                                   for leaf, n in zip(_ADAM_LEAVES, names[1:])}
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            p.copy_(params[key])
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+    return {k[len("extra/"):]: v for k, v in loaded.items() if k.startswith("extra/")}
 
 
 def load_parameters(model: torch.nn.Module, path, torch_format=False,

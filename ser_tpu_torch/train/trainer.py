@@ -5,6 +5,10 @@
 - ``eval_network(loader) -> (acc, f1, {})``, writing ``res.csv``;
 - ``save_parameters`` / tolerant ``load_parameters`` and
   ``export_parameters_torch``;
+- ``save_train_state`` / ``load_train_state`` for an exact resume: the
+  parameters, Adam's moments and step counts, the epoch and the state of the
+  generator every dropout draws from (which also seeds the rank-1
+  attention's mask stream);
 - Adam with coupled decay 2e-5 and StepLR (``train/optim.py``).
 
 The model lives on one device (``cuda`` unless the caller asks for the CPU).
@@ -50,6 +54,7 @@ class ModelTrainer:
         self.weight_decay = weight_decay
         self.optimizer = torch_adam(self.model.parameters(), lr, weight_decay)
         self.lr_at = step_lr(lr, lr_decay, test_step)
+        self.history = {}  # filled by load_train_state
 
     def _train_step_impl(self, batch, lr: float) -> torch.Tensor:
         """One optimizer step on a collated numpy batch; returns the loss on
@@ -98,6 +103,29 @@ class ModelTrainer:
         self.optimizer = torch_adam(self.model.parameters(),
                                     self.optimizer.param_groups[0]["lr"],
                                     self.weight_decay)
+
+    def save_train_state(self, path, epoch, history=None):
+        """Everything a resumed run needs to continue as if never stopped:
+        the parameters, Adam's state, ``epoch``, the generator's state and
+        ``history`` (name -> list of floats the caller keeps across epochs,
+        such as the train CLI's F1 scores), as ``extra/history/<name>``."""
+        extra = {"epoch": int(epoch),
+                 "generator": self.generator.get_state().numpy()}
+        for name, values in (history or {}).items():
+            extra[f"history/{name}"] = np.asarray(values, dtype=np.float64)
+        ckpt.save_train_state(path, self.model, self.optimizer, extra)
+
+    def load_train_state(self, path):
+        """Restore a ``save_train_state`` file; returns the saved epoch and
+        leaves the saved history in ``self.history``."""
+        extra = ckpt.load_train_state(path, self.model, self.optimizer)
+        missing = sorted({"epoch", "generator"} - set(extra))
+        if missing:
+            raise ValueError(f"train-state file {path} lacks extra/{missing}")
+        self.generator.set_state(torch.from_numpy(extra["generator"]))
+        self.history = {k[len("history/"):]: v.tolist() for k, v in extra.items()
+                        if k.startswith("history/")}
+        return int(extra["epoch"])
 
     def export_parameters_torch(self, path):
         """``torch.save`` of the state dict, whose keys are the reference's:

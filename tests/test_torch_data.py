@@ -90,8 +90,8 @@ def test_test_loader_iterates_like_the_jax_packages(feature_paths):
     for o, t in batches:
         assert o["wav"].shape[1:] == (2, 2048)
         _assert_same(o, t, "test batch")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tloaders.get_loaders(feature_paths[0], dataset="MELD")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tloaders.get_loaders(feature_paths[0], dataset="CMU-MOSEI")
 
 
 def test_train_valid_split_equals_the_jax_packages():

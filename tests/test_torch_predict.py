@@ -112,8 +112,6 @@ def test_cli_refuses_what_the_port_cannot_serve(files):
     base = ["--initial_model", ckpt, "--feature_path", feat, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="A.16"):
         tpredict.main(base + ["--encoder_attention", "external"])
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tpredict.main(base + ["--dataset", "MELD"])
     with pytest.raises(KeyError, match="MARN1_onlysp"):
         tpredict.main(base + ["--model", "DialogueRNN"])
 

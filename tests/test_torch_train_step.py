@@ -82,15 +82,20 @@ def _disable_jax_dropout(monkeypatch):
             monkeypatch.setattr(mod, "rank1_cross_attention", r1_det)
 
 
-def run_step(res_csv):
+def run_step(res_csv, batch=None, n_classes=6, init=None):
     """Both packages' step from one init, dropout off: the JAX loss,
     gradients and updated parameters from one jitted call of the JAX
     trainer's ``_train_step_impl`` (its gradients caught from its
-    ``jax.value_and_grad``); the port's trainer after its step."""
+    ``jax.value_and_grad``); the port's trainer after its step. ``batch``
+    defaults to an IEMOCAP-shaped one at [L, B]; ``init`` maps the JAX
+    trainer's initial parameters to the ones both sides start from."""
+    if batch is None:
+        batch = synthetic_batch(L=L, B=B, seed=0, min_len=4)
     mp = pytest.MonkeyPatch()
     try:
         _disable_jax_dropout(mp)
-        jt = JModelTrainer(model="MARN1_onlysp", seed=3, res_csv_path=res_csv)
+        jt = JModelTrainer(model="MARN1_onlysp", seed=3, n_classes=n_classes,
+                           res_csv_path=res_csv)
         caught = {}
         value_and_grad = jax.value_and_grad
 
@@ -103,8 +108,7 @@ def run_step(res_csv):
             return run
 
         mp.setattr(jax, "value_and_grad", catching)
-        batch = synthetic_batch(L=L, B=B, seed=0, min_len=4)
-        params = jt.params
+        params = jt.params if init is None else init(jt.params)
         (new_params, _, jloss), jgrads = jax.jit(
             lambda *a: (jt._train_step_impl(*a), caught["grads"]))(
                 params, jt.tx.init(params), _device_batch(batch),
@@ -112,7 +116,8 @@ def run_step(res_csv):
     finally:
         mp.undo()
 
-    pt = ModelTrainer(device="cpu", seed=3, lr=LR, res_csv_path=res_csv)
+    pt = ModelTrainer(device="cpu", seed=3, lr=LR, n_classes=n_classes,
+                      res_csv_path=res_csv)
     pt.model.load_state_dict(from_jax_params(flatten_params(params)), strict=True)
     no_dropout(pt.model)
     loss = pt._train_step_impl(batch, LR)
@@ -126,7 +131,7 @@ def step(tmp_path_factory):
     return run_step(str(tmp_path_factory.mktemp("step") / "res.csv"))
 
 
-def _port_grads(model):
+def port_grads(model):
     """The port's gradients under the JAX package's flat names (None for a
     parameter outside the graph)."""
     out = {}
@@ -150,7 +155,7 @@ def grad_tolerance(want: dict) -> dict:
 
 
 def test_every_gradient_matches_jax(step):
-    grads = _port_grads(step["pt"].model)
+    grads = port_grads(step["pt"].model)
     assert sorted(grads) == sorted(step["jgrads"])
     tol = grad_tolerance(step["jgrads"])
     for name, g in grads.items():
@@ -162,7 +167,7 @@ def test_every_gradient_matches_jax(step):
 
 
 def test_dead_set_is_jaxs_all_zero_set(step):
-    grads = _port_grads(step["pt"].model)
+    grads = port_grads(step["pt"].model)
     dead = {n for n, g in grads.items() if g is None}
     jax_zero = {n for n, g in step["jgrads"].items() if not np.any(np.asarray(g))}
     assert dead == jax_zero
@@ -177,7 +182,7 @@ def test_updated_parameters_within_two_lr(step):
         want = np.asarray(want)
         np.testing.assert_array_less(np.abs(after[name] - want), 2.05 * LR,
                                      err_msg=name)
-    grads = _port_grads(step["pt"].model)
+    grads = port_grads(step["pt"].model)
     for name, g in grads.items():  # dead parameters did not move at all
         if g is None:
             np.testing.assert_array_equal(after[name], np.asarray(before[name]))
