@@ -94,7 +94,23 @@ Phases, each fatal on failure:
     recurrence's forward and backward inside a step; a ``torch.profiler``
     profile of a train step; the launches the optimizer's restore of
     all-zero-gradient parameters adds to Adam's step; a MELD train step at
-    [32, 80], P = 9 (median of 5, peak memory, rank-1 launches).
+    [32, 80], P = 9 (median of 5, peak memory, rank-1 launches);
+ 9. the six MARN1 variants that run the rank-1 attention (sp, cf, azs, sps,
+    nsps, no_en), seeded full-width weights: (a) one IEMOCAP feature request
+    at [82, 31] on the card against the CPU, exactly T launches of the
+    rank-1 kernel and no other kernel of the port, then ms a request (CUDA
+    events, median of 10) and a profile (kernel launches a request, device
+    idle share, the rank-1 kernel's share of busy time); (b) train steps at
+    [110, 80]: 2T rank-1 launches a step (2T - 1 for nsps and no_en), ms a
+    step (median of 3), peak memory, a profile, the recurrence's forward and
+    backward inside a step between two readings of the step;
+    one step card against CPU (dropout off, the constant-initialised
+    parameters made random on both sides) at [110, 80] for sp and [32, 16]
+    for the others: loss, gradients, dead set, Adam update; (c) sp and nsps
+    on a MELD request [32, 80], P = 9, card against CPU; (d) ``python -m
+    ser_tpu_torch.train --model MARN1_nsps --synthetic --epoch 2`` on the
+    card and ``python -m ser_tpu_torch.predict --model MARN1_nsps`` on its
+    epoch-2 checkpoint, which must report ``score.txt``'s Acc and F1.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -158,6 +174,7 @@ WAV_T, WAV_BUCKET_T = 4000, 4096  # bench.py's utterance, collate's bucket
 PREDICT_SEED = 111  # the predict CLI's default --seed, which --synthetic uses
 MELD_TEST = 280  # MELD's published test split, in dialogues
 MELD_TRAIN = 200  # train dialogues of phase 7d's pickles: 2 batches of 80 an epoch
+VARIANTS = ("MARN1_sp", "MARN1_cf", "MARN1_azs", "MARN1_sps", "MARN1_nsps", "MARN1_no_en")
 # the recurrence kernel's party select and scatter on a step's serial chain,
 # an estimate that no run measures: instructions a party, counted in its
 # source: the r/z thread 8 (the qmask load, 1 - m, a multiply and an FFMA;
@@ -166,6 +183,18 @@ MELD_TRAIN = 200  # train dialogues of phase 7d's pickles: 2 batches of 80 an ep
 # selects); a warp issues one a clock at the data sheet's boost clock
 PARTY_CHAIN_INSTR = 8 + 11
 SM_CLOCK = 1.98e9  # H100 SXM boost clock (data sheet)
+# phase 9's models and the size of each one's dead set: the parameters it
+# declares and never uses (the S projections of a 3-term LSTHM, lstm_s or
+# gru_l, l2a's Wv and the a2l rank-1 vectors, the encoders' pos_ffn.fc, the
+# model's own unused modules; tests/test_torch_variants_train.py holds the
+# names against the JAX package's all-zero gradients)
+VARIANT_DEAD = {"MARN1_sp": 34, "MARN1_cf": 25, "MARN1_azs": 18, "MARN1_sps": 20,
+                "MARN1_nsps": 22, "MARN1_no_en": 34}
+VARIANT_CHECK_SHAPE = (32, 16)  # phase 9's card-against-CPU step, [110, 80] for sp
+# nsps and no_en leave z out of a step's output, so the last step's z reaches
+# no loss and autograd runs no backward of the rank-1 kernel for it: 2T - 1
+# launches a train step where the others take 2T
+Z_NOT_IN_OUTPUT = ("MARN1_nsps", "MARN1_no_en")
 
 
 def check(cond, msg):
@@ -684,6 +713,215 @@ def rank1_timings(torch, card, dev, rank1_kernel, rank1_seed):
           + ", ".join(f"{e.key[:50]} x{e.count}" for e in events))
 
     return rank1_ms, r1_plain_ms, rb, sdpa_ms["both"]
+
+
+def variant_recurrence_ms(torch, marn_variants, trainer, batch):
+    """``(forward ms, backward ms)`` of a variant's recurrence inside a
+    train step at ``batch``: ``fused_directions`` called again on the inputs
+    one train forward gave it, made leaves so the backward stops there,
+    timed with CUDA events (median of 3); the backward of a random output
+    gradient through those leaves and the cells' parameters."""
+    real, seen = marn_variants.fused_directions, []
+    marn_variants.fused_directions = lambda *a: seen.append(a) or real(*a)
+    try:
+        with torch.no_grad():
+            trainer.model.train()(*trainer.predictor.batch_inputs(batch),
+                                  generator=trainer.generator)
+    finally:
+        marn_variants.fused_directions = real
+    cell_f, cell_b, inputs_f, inputs_b, *rest = seen[0]
+    leaf = lambda t: t.detach().requires_grad_() if t.is_floating_point() else t  # noqa: E731
+    ins_f, ins_b = tuple(map(leaf, inputs_f)), tuple(map(leaf, inputs_b))
+    run = lambda: real(cell_f, cell_b, ins_f, ins_b, *rest)  # noqa: E731
+    fwd_ms = cuda_ms(torch, run, warmup=1, iters=3)
+    ys = run()
+    gy = torch.randn_like(ys)
+    bwd_ms = cuda_ms(torch, lambda: ys.backward(gy, retain_graph=True), warmup=1, iters=3)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return fwd_ms, bwd_ms
+
+
+def kernel_split(events, n):
+    """``(kernel launches, busy ms, rank-1 ms)`` a call from ``n`` calls'
+    profiler events."""
+    kernels = [e for e in events if "Memcpy" not in e.key and "Memset" not in e.key]
+    return (sum(e.count for e in kernels) / n,
+            sum(e.self_device_time_total for e in events) / n / 1e3,
+            sum(e.self_device_time_total for e in events if "rank1_" in e.key) / n / 1e3)
+
+
+def variant_phase(torch, card, eval_batch, meld_test, names):
+    """Phase 9 (the module docstring); returns the rank-1 kernel's launches
+    by path, each counted from 0 just before its run."""
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.models import marn_variants
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.rank1 import NAME as RANK1
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.serving import Predictor
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    T = eval_batch["qmask"].shape[0]
+    n_utts = int(eval_batch["umask"].sum())
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    meld_batch = next(iter(meld_test))
+    launches = {}
+    for name in names:
+        # (a) a feature request at the IEMOCAP eval shape, card against CPU
+        spec = get_model_spec(name)
+        x, qmask, umask = spec.make_inputs(eval_batch)
+        gpu = Predictor(name, seed=0, device="cuda")
+        cpu = Predictor(name, state_dict={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+                        device="cpu")
+        reset_launches()
+        logp = gpu.predict(x, qmask, umask)[0]
+        torch.cuda.synchronize()
+        req_launches = dict(LAUNCHES)
+        launches[f"{name} request [{T}, {x.shape[1]}]"] = req_launches.get(RANK1, 0)
+        logp = logp.cpu()
+        ref = cpu.predict(x, qmask, umask)[0]
+        err = (logp - ref).abs().max().item()
+        print(f"[variant] {name} request [{T}, {x.shape[1]}]: launches {req_launches}, "
+              f"max|gpu-cpu| {err:.3e}")
+        check(torch.isfinite(logp).all().item() and logp.shape == ref.shape,
+              f"{name}: non-finite or misshapen log-probs")
+        check(req_launches == {RANK1: T}, f"{name}: a request launched {req_launches}, "
+              f"want {RANK1} {T} times")
+        check(torch.allclose(logp, ref, rtol=1e-3, atol=1e-4),
+              f"{name} request: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        request = lambda: gpu.predict(x, qmask, umask)  # noqa: E731
+        req_ms = cuda_ms(torch, request, warmup=2, iters=10)
+        wall, busy, events = device_profile(torch, request, 3)
+        n_kernels, busy_ms, r1_ms = kernel_split(events, 3)
+        print(f"[time] {card} | {name} request [{T}, {x.shape[1]}]: {req_ms:.4f} ms "
+              f"(median of 10), {n_utts / req_ms * 1e3:.1f} utterances/s; profile of 3: "
+              f"{n_kernels:.0f} kernel launches a request, device busy {busy_ms:.4f} ms a "
+              f"request, idle {100 * (1 - busy / wall):.1f}% of {wall / 3:.3f} ms, "
+              f"{RANK1} {r1_ms:.4f} ms ({100 * r1_ms / busy_ms:.1f}% of busy)")
+        # (c) a MELD request at P = 9 for sp and nsps
+        if name in ("MARN1_sp", "MARN1_nsps"):
+            gpu9 = Predictor(name, seed=0, device="cuda", n_classes=7)
+            cpu9 = Predictor(name, state_dict={k: v.cpu() for k, v in
+                                               gpu9.model.state_dict().items()},
+                             device="cpu", n_classes=7)
+            x9, q9, u9 = spec.make_inputs(meld_batch)
+            reset_launches()
+            logp9 = gpu9.predict(x9, q9, u9)[0]
+            torch.cuda.synchronize()
+            meld_launches = LAUNCHES[RANK1]
+            launches[f"{name} MELD request {list(q9.shape)}"] = meld_launches
+            err9 = (logp9.cpu() - cpu9.predict(x9, q9, u9)[0]).abs().max().item()
+            print(f"[variant] {name} MELD request {list(q9.shape)}: {RANK1} launches "
+                  f"{meld_launches}, max|gpu-cpu| {err9:.3e}")
+            check(q9.shape[-1] == 9 and meld_launches == q9.shape[0],
+                  f"{name}: a MELD request launched {RANK1} {meld_launches} times")
+            check(torch.allclose(logp9.cpu(), cpu9.predict(x9, q9, u9)[0], rtol=1e-3,
+                                 atol=1e-4), f"{name} MELD request: card and CPU disagree")
+            del gpu9, cpu9
+        del gpu, cpu
+
+        # (b) train steps at [110, 80]: launches, time, peak memory, profile,
+        #     the recurrence's share
+        trainer = ModelTrainer(model=name, seed=0, lr=TRAIN_LR)
+        step = lambda: trainer._train_step_impl(train_batch, TRAIN_LR)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        reset_launches()
+        step()
+        torch.cuda.synchronize()
+        step_launches = dict(LAUNCHES)
+        launches[f"{name} train step [{TRAIN_L}, {TRAIN_B}]"] = step_launches.get(RANK1, 0)
+        want = 2 * TRAIN_L - (name in Z_NOT_IN_OUTPUT)
+        check(step_launches == {RANK1: want}, f"{name}: a train step launched "
+              f"{step_launches}, want {RANK1} {want} times")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(torch, step, warmup=0, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, events = device_profile(torch, step, 1)
+        n_kernels, busy_ms, r1_ms = kernel_split(events, 1)
+        # the recurrence's share, between two readings of the step: the
+        # host's speed drifts within a call
+        fwd_ms, bwd_ms = variant_recurrence_ms(torch, marn_variants, trainer, train_batch)
+        step_again_ms = cuda_ms(torch, step, warmup=0, iters=3)
+        share = 200 * (fwd_ms + bwd_ms) / (step_ms + step_again_ms)
+        print(f"[time] {card} | {name} train step [{TRAIN_L}, {TRAIN_B}]: {step_ms:.2f} ms "
+              f"(median of 3), peak {peak:.4f} GiB, {RANK1} launches a step "
+              f"{step_launches[RANK1]}; profile of one step: {n_kernels:.0f} kernel "
+              f"launches, wall {wall:.2f} ms, busy {busy_ms:.3f} ms (idle "
+              f"{100 * (1 - busy / wall):.1f}%), {RANK1} {r1_ms:.4f} ms; then the "
+              f"recurrence forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, then the "
+              f"step {step_again_ms:.2f} ms: the recurrence {share:.1f}% of a step")
+        del trainer, step
+
+        # one step card against CPU, dropout off, constants made random
+        L_c, B_c = (TRAIN_L, TRAIN_B) if name == "MARN1_sp" else VARIANT_CHECK_SHAPE
+        check_batch = synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2)
+        trainers = {d: ModelTrainer(device=d, model=name, seed=0, lr=TRAIN_LR)
+                    for d in ("cpu", "cuda")}
+        randomize_constants(torch, [t.model for t in trainers.values()], seed=1)
+        loss = {}
+        t0 = time.perf_counter()
+        for d, t in trainers.items():
+            no_dropout(t.model, Dropout)
+            reset_launches()
+            loss[d] = t._train_step_impl(check_batch, TRAIN_LR).item()
+        torch.cuda.synchronize()
+        check_launches = LAUNCHES[RANK1]
+        worst, dead_cpu, dead_card = grad_check(torch, trainers["cpu"].model,
+                                                trainers["cuda"].model)
+        moved = max((p.detach().cpu() - q.detach()).abs().max().item() for p, q in zip(
+            trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters()))
+        loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        print(f"[variant] {name} one step [{L_c}, {B_c}] card vs CPU ({time.perf_counter() - t0:.1f} "
+              f"s): |loss| rel {loss_rel:.3e}, gradients {worst:.3f} of the tolerance, "
+              f"{len(dead_card)} parameters with no gradient, max |param card - CPU| after "
+              f"Adam {moved / TRAIN_LR:.3f} lr, {RANK1} launches {check_launches}")
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{name} step loss: card and CPU disagree")
+        check(worst <= 1.0, f"{name} step gradients: card and CPU disagree")
+        check(dead_cpu == dead_card and len(dead_card) == VARIANT_DEAD[name],
+              f"{name} dead parameters: CPU {len(dead_cpu)}, card {len(dead_card)}, "
+              f"want {VARIANT_DEAD[name]}")
+        check(moved <= 2.05 * TRAIN_LR, f"{name} Adam updates: card and CPU differ")
+        check(check_launches == 2 * L_c - (name in Z_NOT_IN_OUTPUT),
+              f"{name}: {RANK1} {check_launches} launches in a step of T={L_c}")
+        del trainers
+
+    # (d) the train CLI on the card, then the predict CLI on its checkpoint
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variant_cli_") as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "exp"
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "ser_tpu_torch.train", "--model", "MARN1_nsps",
+             "--synthetic", "--epoch", "2", "--batch_size", str(TRAIN_B), "--save_path",
+             str(exp)], cwd=tmp, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        print(f"[cli] train CLI MARN1_nsps, 2 epochs: exit {run.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(run.returncode == 0, f"train CLI exited {run.returncode}:\n{run.stderr[-3000:]}")
+        lines = score_lines(exp / "score.txt")
+        for line in lines:
+            print(f"[cli]   score.txt: {line}")
+        params_csv = (tmp / "parameters.csv").read_text().splitlines()
+        check(len(lines) == 2 and params_csv[0] == "p" and len(params_csv) == 3,
+              f"train CLI MARN1_nsps: {len(lines)} score lines, parameters.csv {params_csv}")
+        run = subprocess.run(
+            [sys.executable, "-m", "ser_tpu_torch.predict", "--model", "MARN1_nsps",
+             "--synthetic", "--initial_model", str(exp / "model" / "model_0002.model"),
+             "--res_csv", str(tmp / "predict.csv")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"predict CLI exited {run.returncode}:\n{run.stderr[-3000:]}")
+        check("is not in the model" not in run.stdout, "predict CLI skipped checkpoint names")
+        rep = json.loads(run.stdout[run.stdout.index("{"):])
+        scored = re.search(r"Acc ([\d.]+), Fscore ([\d.]+)", lines[1]).groups()
+        predicted = (f"{rep['weighted_accuracy']:.2f}", f"{rep['weighted_f1']:.2f}")
+        p_weights = rep["fusion_weights"]["p"]
+        print(f"[cli] predict MARN1_nsps on model_0002: Acc {predicted[0]}, F1 {predicted[1]}, "
+              f"softmax(p) {p_weights}; score.txt epoch 2: Acc {scored[0]}, Fscore {scored[1]}")
+        check(predicted == scored, "MARN1_nsps: the predict CLI's Acc/F1 differ from score.txt's")
+        check(len(p_weights) == 2 and abs(sum(p_weights) - 1) < 1e-6, "softmax(p) in the JSON")
+    return launches
 
 
 def main() -> int:
@@ -1494,7 +1732,16 @@ def main() -> int:
           f"GiB, launches a step {meld_step_launches}")
     check(meld_step_launches.get(RANK1, 0) == 2 * 32,
           f"a MELD step launched {RANK1} {meld_step_launches.get(RANK1)} times, want 64")
+    del meld_trainer, meld_step
+
+    # 9. the rank-1 MARN1 variants, served and trained on the card
+    t0 = time.perf_counter()
+    variant_launches = variant_phase(torch, card, eval_batch, meld_test, VARIANTS)
+    print(f"[variant] phase 9 in {time.perf_counter() - t0:.1f} s; {RANK1} launches by "
+          f"path: {variant_launches}")
     meld_tmp.cleanup()
+    rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
+                      **variant_launches}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
@@ -1516,7 +1763,8 @@ def main() -> int:
         "name": RANK1, "route": "cuda",
         "source": "ser_tpu_torch/csrc/rank1_attention.cu",
         "replaces": "ser_tpu/ops/attention.py:41",
-        "launches": train_launches[RANK1], "max_abs_err": rank1_err,
+        "launches": sum(rank1_launches.values()), "launches_by_path": rank1_launches,
+        "max_abs_err": rank1_err,
         "ms": rank1_ms, "plain_ms": r1_plain_ms, "bound_ms": rb["both"][0],
         "bound_by": rb["both"][1], "library_ms": sdpa_pair_ms}]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,22 @@
-"""The JAX package's flattened MARN1_onlysp parameters as a port state dict.
+"""The JAX package's flattened MARN1 parameters as a port state dict.
 
 ``from_jax_params`` takes the flat names that the JAX package's
 ``train.checkpoint.flatten_params`` writes (``"marn_cell_f/lsthm_l_W_kernel"``,
 ``"encoder_l/slf_attn/w_qs/kernel"``, ...) and returns the reference-layout
 torch keys the port's modules use. Dense kernels ``[in, out]`` are
 transposed to ``[out, in]``; the per-step rank-1 attention vectors ``[D]``
-become ``[1, D]``. This is the port's own copy of the mapping that the JAX
-package's torch converter defines for MARN1_onlysp. ``to_jax_params`` is its
-inverse, which writes a port state dict as the JAX package's checkpoint
-names.
+become ``[1, D]``. The mapping covers every model the port has
+(``MARN1_onlysp`` and the variants sp, cf, azs, sps, nsps and no_en), and
+for each its keys equal the JAX package's
+``compat.torch_export.export_state_dict(params, NAME, prefix="")``. This is
+the port's own copy of that mapping. ``to_jax_params`` is its inverse, which
+writes a port state dict as the JAX package's checkpoint names.
+
+The names differ from the keys in three ways: a cell's own parameters are
+flat leaves (``lsthm_q_U_kernel`` is ``lsthm_q.U.weight``,
+``gru_s_ih_kernel`` is ``gru_s.weight_ih``); a ``Sequential``'s index is
+joined with an underscore (``nn_out_0``, ``fc_0``, ``fc2_0``); and azs's
+cell encoders are ``marn_cell_f_encoder_l`` for ``marn_cell_f.encoder_l``.
 """
 
 from __future__ import annotations
@@ -18,11 +26,23 @@ import re
 import numpy as np
 import torch
 
-_LSTHM = re.compile(r"(lsthm_[la])_([WUVS])_(kernel|bias)")
-_RNN = re.compile(r"(gru_s|lstm_q0|lstm_q1|lstm_s)_(ih|hh)_(kernel|bias)")
+_LSTHM = re.compile(r"(lsthm_[laq])_([WUVS])_(kernel|bias)")
+_RNN = re.compile(r"(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s)_(ih|hh)_(kernel|bias)")
 _RANK1 = re.compile(r"(crossatt_l2a|crossatt_a2l)_(W[qkv])")
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
-_MODULE = {"nn_out_0": "nn_out.0", "nn_out_3": "nn_out.3"}
+_SCALARS = ("w", "v", "v1", "v2", "p")
+# a JAX module name that is two torch modules: a Sequential's index, azs's
+# encoders inside a cell
+_JOINED = re.compile(r"(nn_out|fc|fc2)_(\d+)|(marn_cell_[fb])_(encoder_[la])")
+
+
+def _module_path(head: str) -> str:
+    """A JAX module path (``a/b_0/c``) as a torch one (``a.b.0.c``)."""
+    parts = []
+    for part in head.split("/"):
+        m = _JOINED.fullmatch(part)
+        parts.extend([p for p in m.groups() if p] if m else [part])
+    return ".".join(parts)
 
 
 def _convert(name: str, value: np.ndarray):
@@ -40,17 +60,17 @@ def _convert(name: str, value: np.ndarray):
         if m := _RANK1.fullmatch(leaf):
             return f"{head}.{m[1]}.{m[2]}", value.reshape(1, -1)
     elif leaf in _LEAF and head:
-        key = ".".join(_MODULE.get(p, p) for p in head.split("/"))
-        return f"{key}.{_LEAF[leaf]}", value.T if leaf == "kernel" else value
-    elif head.startswith("crossatt_") and leaf in ("Wq", "Wk", "Wv"):
+        return (f"{_module_path(head)}.{_LEAF[leaf]}",
+                value.T if leaf == "kernel" else value)
+    elif head.startswith("crossatt_") and "/" not in head and leaf in ("Wq", "Wk", "Wv"):
         return f"{head}.{leaf}", value
-    elif not head and leaf in ("w", "v", "v1", "v2"):
+    elif not head and leaf in _SCALARS:
         return leaf, value
-    raise KeyError(f"no MARN1_onlysp home for JAX parameter '{name}'")
+    raise KeyError(f"no MARN1 home for JAX parameter '{name}'")
 
 
 def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat JAX MARN1_onlysp parameters -> the port's state dict."""
+    """Flat JAX MARN1 parameters -> the port's state dict."""
     out = {}
     for name, value in flat.items():
         key, v = _convert(name, np.asarray(value, dtype=np.float32))
@@ -58,11 +78,13 @@ def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
-_KEY_LSTHM = re.compile(r"(marn_cell_[fb])\.(lsthm_[la])\.([WUVS])\.(weight|bias)")
-_KEY_RNN = re.compile(r"(marn_cell_[fb])\.(gru_s|lstm_q0|lstm_q1|lstm_s)\."
+_KEY_LSTHM = re.compile(r"(marn_cell_[fb])\.(lsthm_[laq])\.([WUVS])\.(weight|bias)")
+_KEY_RNN = re.compile(r"(marn_cell_[fb])\.(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s)\."
                       r"(weight|bias)_(ih|hh)")
 _KEY_RANK1 = re.compile(r"(marn_cell_[fb])\.(crossatt_l2a|crossatt_a2l)\.(W[qkv])")
 _KEY_SEQ_ATT = re.compile(r"(crossatt_\w+)\.(W[qkv])")
+_KEY_JOINED = re.compile(  # whole dotted segments only
+    r"(?<![^.])(?:(nn_out|fc|fc2)\.(\d+)|(marn_cell_[fb])\.(encoder_[la]))(?![^.])")
 
 
 def _to_jax(key: str, v: np.ndarray):
@@ -78,11 +100,10 @@ def _to_jax(key: str, v: np.ndarray):
         return f"{m[1]}/{m[2]}_{m[3]}", v.reshape(-1)
     if m := _KEY_SEQ_ATT.fullmatch(key):
         return f"{m[1]}/{m[2]}", v
-    if "." not in key:  # the fusion scalars w, v, v1, v2
+    if "." not in key:  # the fusion scalars w, v, v1, v2 and p
         return key, v
     head, leaf = key.rsplit(".", 1)
-    for jax_part, torch_part in _MODULE.items():
-        head = head.replace(torch_part, jax_part)
+    head = _KEY_JOINED.sub(lambda m: "_".join(p for p in m.groups() if p), head)
     head = head.replace(".", "/")
     if leaf == "weight":  # a Dense kernel [out, in], or a LayerNorm scale
         return (f"{head}/kernel", v.T) if v.ndim == 2 else (f"{head}/scale", v)
@@ -90,8 +111,8 @@ def _to_jax(key: str, v: np.ndarray):
 
 
 def to_jax_params(state_dict) -> dict[str, np.ndarray]:
-    """The port's state dict -> flat JAX MARN1_onlysp parameters, as the
-    JAX package's ``save_parameters`` names them."""
+    """The port's state dict -> flat JAX MARN1 parameters, as the JAX
+    package's ``save_parameters`` names them."""
     out = {}
     for key, value in state_dict.items():
         name, v = _to_jax(key, value.detach().cpu().numpy())

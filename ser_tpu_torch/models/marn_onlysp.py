@@ -31,7 +31,8 @@ import torch
 from torch import nn
 
 from ser_tpu_torch.ops.attention import (CrossAttentionReSeq,
-                                         CrossAttentionSeq, Rank1Weights)
+                                         CrossAttentionSeq, Rank1Weights,
+                                         attention_tail)
 from ser_tpu_torch.ops.cells import LSTHM, RNNCellWeights, gru_step, lsthm_gates
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.lsthm import lsthm_onlysp_recurrence_bidir
@@ -192,11 +193,10 @@ class MARN1OnlySP(nn.Module):
         h = torch.cat([self.dropout_rec(ys[:, 0], g),
                        self.dropout_rec_b(reverse_seq(ys[:, 1], umask), g)], -1)
 
-        w, v = self.w * x_l, self.v * x_a
-        attn1 = self.crossatt_l2a(w, v, g)
-        attn2 = self.crossatt_a2l(v, w, g)
-        attn1 = self.crossatt_l2a_1(v, self.v1 * attn1, g)
-        attn2 = self.crossatt_a2l_1(w, self.v2 * attn2, g)
+        attn1, attn2 = attention_tail(
+            (self.crossatt_l2a, self.crossatt_a2l),
+            (self.crossatt_l2a_1, self.crossatt_a2l_1),
+            self.w * x_l, self.v * x_a, self.v1, self.v2, g)
 
         head, relu, head_drop, out_layer = self.nn_out
         out = out_layer(head_drop(relu(head(torch.cat([h, attn1, attn2], -1))), g))

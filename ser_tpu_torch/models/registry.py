@@ -1,23 +1,30 @@
 """String-keyed model factory (counterpart of ``ser_tpu/models/registry.py``).
 
-One entry so far, the flagship ``MARN1_onlysp``. ``make_inputs`` follows the
-reference trainer: x = cat(mean of the four RoBERTa views, audio), from a
-numpy batch on the host: 1024 + 100 wide for IEMOCAP, 1024 + 300 for MELD
-(the model reads the first 100 audio dims). The head has ``n_classes``
-outputs: 6 for IEMOCAP, 3 or 7 for MELD. Where the audio front end computes ``acouf`` on the
-device, ``text_features`` gives the host-side mean alone and ``join_inputs``
-concatenates the two tensors there.
+Seven entries so far: the flagship ``MARN1_onlysp`` and the six ablation
+variants that run the rank-1 attention (``MARN1_sp``, ``MARN1_cf``,
+``MARN1_azs``, ``MARN1_sps``, ``MARN1_nsps``, ``MARN1_no_en``); ``QUEUED``
+names the JAX package's models the port has not yet. ``make_inputs``
+follows the reference trainer for all of them: x = cat(mean of the four
+RoBERTa views, audio), from a numpy batch on the host: 1024 + 100 wide for
+IEMOCAP, 1024 + 300 for MELD (the models read the first 100 audio dims).
+The head has ``n_classes`` outputs: 6 for IEMOCAP, 3 or 7 for MELD. Where
+the audio front end computes ``acouf`` on the device, ``text_features``
+gives the host-side mean alone and ``join_inputs`` concatenates the two
+tensors there.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ser_tpu_torch.models.marn_onlysp import MARN1OnlySP
+from ser_tpu_torch.models.marn_variants import (MARN1AZS, MARN1CF, MARN1NSPS,
+                                                MARN1SP, MARN1SPS)
 
 
 @dataclass(frozen=True)
@@ -38,14 +45,27 @@ def _marn1_inputs(batch):
     return x, batch["qmask"], batch["umask"]
 
 
-_REGISTRY = {
-    "MARN1_onlysp": ModelSpec(
-        "MARN1_onlysp",
-        lambda n_classes, generator: MARN1OnlySP(n_classes,
-                                                 generator=generator),
-        _marn1_inputs, _marn1_text,
-        lambda textf, acouf: torch.cat([textf, acouf], dim=-1)),
+def _join(textf, acouf):
+    return torch.cat([textf, acouf], dim=-1)
+
+
+_BUILDERS = {
+    "MARN1_onlysp": MARN1OnlySP,
+    "MARN1_sp": MARN1SP,
+    "MARN1_cf": MARN1CF,
+    "MARN1_azs": MARN1AZS,
+    "MARN1_sps": MARN1SPS,
+    "MARN1_nsps": MARN1NSPS,
+    "MARN1_no_en": partial(MARN1NSPS, use_text_encoder=False),
 }
+_REGISTRY = {
+    name: ModelSpec(name, lambda n_classes, generator, cls=cls: cls(
+        n_classes, generator=generator), _marn1_inputs, _marn1_text, _join)
+    for name, cls in _BUILDERS.items()}
+
+# the JAX package's models still to port (ROADMAP A.10-A.12)
+QUEUED = ("MARN1_mf", "MARN1_la", "MARN1_newz", "DialogueRNN", "BiLSTM", "MARN",
+          "MARN_AT", "MARN_ATV")
 
 
 def get_model_spec(name: str) -> ModelSpec:

@@ -1,14 +1,15 @@
 """Cross-modal attention (counterpart of ``ser_tpu/ops/attention.py``): the
-per-step rank-1 attention in eval and train form, and the two sequence cross
-attentions of the MARN1 head with their train-mode dropout (rate 0.2) on the
-attention map. All weights are ones at init, as in the reference."""
+per-step rank-1 attention in eval and train form, the sequence cross
+attentions of the MARN1 heads with their train-mode dropout (rate 0.2) on the
+attention map, and the head's two attention chains (``attention_tail``).
+All weights are ones at init, as in the reference."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ser_tpu_torch.ops.layers import Dropout
+from ser_tpu_torch.ops.layers import Dropout, TorchLayerNorm
 
 
 def rank1_cross_attention(x1: torch.Tensor, x2: torch.Tensor,
@@ -99,3 +100,36 @@ class CrossAttentionReSeq(CrossAttentionSeq):
 
     def __init__(self, dh: int = 100, dk: int = 128, dv: int = 128):
         super().__init__(dh, dk, dv, d_kv_in=dk)
+
+
+class CrossAttentionSeqLN(CrossAttentionSeq):
+    """MARN1_nsps's ``CrossAttention2`` with a residual and LayerNorm
+    (eps 1e-6) after the add: ``LN(attend(x1, x2) + x1)``. Its widths come
+    from the constructor (nsps builds it at 100, 100, 100)."""
+
+    def __init__(self, dh: int = 100, dk: int = 128, dv: int = 128):
+        super().__init__(dh, dk, dv)
+        self.layer_norm = TorchLayerNorm(dh)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.layer_norm(super().forward(x1, x2, generator) + x1)
+
+
+def attention_tail(seq, reseq, x_first, x_second, v1, v2,
+                   generator: torch.Generator | None = None):
+    """The MARN1_onlysp and MARN1_sps head's two attention chains, the math
+    of the JAX package's ``paired_attention_tail`` run chain by chain::
+
+        attn1 = reseq[0](x_second, v1 * seq[0](x_first, x_second))
+        attn2 = reseq[1](x_first, v2 * seq[1](x_second, x_first))
+
+    ``seq`` the two ``CrossAttentionSeq`` (l2a, a2l), ``reseq`` the two
+    ``CrossAttentionReSeq``; x_first = w * x_l, x_second = v * x_a,
+    time-major ``[L, B, 100]``. Returns ``(attn1, attn2)``, ``[L, B, 128]``.
+    In train mode the four maps draw their dropouts from ``generator`` in
+    that order."""
+    attn1 = seq[0](x_first, x_second, generator)
+    attn2 = seq[1](x_second, x_first, generator)
+    return (reseq[0](x_second, v1 * attn1, generator),
+            reseq[1](x_first, v2 * attn2, generator))

@@ -27,6 +27,29 @@ def lsthm_gates(sums: torch.Tensor, c_prev: torch.Tensor):
     return c_t, torch.tanh(c_t) * o_t
 
 
+def torch_lstm_gates(sums: torch.Tensor, c_prev: torch.Tensor):
+    """``nn.LSTMCell`` gate nonlinearity, order i, f, g, o. Returns
+    ``(c_t, h_t)``."""
+    H = c_prev.shape[-1]
+    i_t = torch.sigmoid(sums[..., :H])
+    f_t = torch.sigmoid(sums[..., H:2 * H])
+    g_t = torch.tanh(sums[..., 2 * H:3 * H])
+    o_t = torch.sigmoid(sums[..., 3 * H:])
+    c_t = f_t * c_prev + i_t * g_t
+    return c_t, o_t * torch.tanh(c_t)
+
+
+def lstm_step(x_proj: torch.Tensor, h_prev: torch.Tensor, c_prev: torch.Tensor,
+              hh_kernel: torch.Tensor, hh_bias: torch.Tensor):
+    """``nn.LSTMCell`` step with the x side precomputed (gate order i, f, g,
+    o). x_proj ``[..., 4H]``, h_prev and c_prev ``[..., H]``, hh_kernel
+    ``[..., H, 4H]``, hh_bias broadcastable to ``[..., 4H]``. Returns
+    ``(h_t, c_t)``, the JAX package's order."""
+    sums = x_proj + torch.matmul(h_prev, hh_kernel) + hh_bias
+    c_t, h_t = torch_lstm_gates(sums, c_prev)
+    return h_t, c_t
+
+
 def gru_step(x_proj: torch.Tensor, h_prev: torch.Tensor,
              hh_kernel: torch.Tensor, hh_bias: torch.Tensor) -> torch.Tensor:
     """``nn.GRUCell`` step with the x side precomputed (gate order r, z, n;

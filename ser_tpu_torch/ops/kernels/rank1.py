@@ -1,5 +1,6 @@
-"""Per-step rank-1 cross attention of the train recurrence, with dropout:
-the CUDA kernel's wrapper, its autograd binding and its plain version.
+"""Per-step rank-1 cross attention of the recurrences, with dropout in
+train: the CUDA kernel's wrapper, its autograd binding and its plain
+version.
 
 Counterpart of ``ser_tpu/ops/attention.py::_rank1_fused_impl`` (fused XLA
 under ``jax.checkpoint`` in the JAX package) and its analytic backward
@@ -235,6 +236,8 @@ class Rank1Kernel:
         return (*dx.unbind(0), *dw.unbind(0))
 
     def __call__(self, x1, x2, step: int) -> torch.Tensor:
+        if not torch.is_grad_enabled():  # eval: the forward alone, no graph
+            return self.forward(x1, x2, step)
         return _Rank1Function.apply(x1, x2, self.wq, self.wk, self, step)
 
 
@@ -288,9 +291,12 @@ def occupancy() -> dict[str, int]:
 
 
 def bind(wq, wk, seed, p: float):
-    """``attend(x1, x2, step) -> z`` for one train recurrence: the kernel
+    """``attend(x1, x2, step) -> z`` for one recurrence: the kernel
     (``Rank1Kernel``) where wq lies on the card, the plain version on the
-    CPU."""
+    CPU. At p = 0 the train form is the eval form (``den = sum_k e``,
+    ``u = e``), so an eval recurrence binds with p = 0 and any constant
+    seed; under ``no_grad`` or ``inference_mode`` a call launches the
+    forward alone."""
     if wq.device.type == "cuda":
         return Rank1Kernel(wq, wk, seed, p)
     if wq.device.type == "cpu":

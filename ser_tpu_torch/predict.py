@@ -33,7 +33,7 @@ import torch
 from ser_tpu_torch.data.loaders import get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
-from ser_tpu_torch.models.registry import get_model_spec
+from ser_tpu_torch.models.registry import QUEUED, get_model_spec
 from ser_tpu_torch.serving import Predictor
 from ser_tpu_torch.train.checkpoint import load_parameters
 from ser_tpu_torch.train.metrics import weighted_accuracy, weighted_f1
@@ -76,16 +76,26 @@ def _check_servable(args):
     try:
         get_model_spec(args.model)
     except KeyError as e:
-        raise KeyError(f"{e.args[0]}; the rest of the zoo is queued "
-                       "(ROADMAP A.10-A.12)") from None
+        raise KeyError(f"{e.args[0]}; queued (ROADMAP A.10-A.12): "
+                       + ", ".join(QUEUED)) from None
 
 
 def fusion_weights(model: torch.nn.Module) -> dict:
-    """The model's learned scalar fusion weights (w, v, v1, v2), as the JAX
-    trainer reports them."""
-    params = dict(model.named_parameters())
-    return {name: float(params[name].detach().reshape(-1)[0])
-            for name in ("w", "v", "v1", "v2") if name in params}
+    """The model's learned fusion weights, as the JAX trainer's
+    ``fusion_weights`` reports them: the scalars w, v, v1, v2, w1, w2 as
+    floats (a longer one as a list), and ``p`` as its softmax, taken in f32
+    with numpy; empty for a model with none."""
+    params = {name: p.detach().cpu().numpy() for name, p in model.named_parameters()
+              if "." not in name}
+    out = {}
+    for name in ("w", "v", "v1", "v2", "w1", "w2"):
+        if name in params:
+            arr = params[name].reshape(-1)
+            out[name] = float(arr[0]) if arr.size == 1 else arr.tolist()
+    if "p" in params:
+        e = np.exp(params["p"])
+        out["p"] = (e / e.sum()).tolist()
+    return out
 
 
 def write_res_csv(path, preds, labels, masks) -> None:

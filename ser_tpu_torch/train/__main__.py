@@ -36,7 +36,7 @@ import torch
 from ser_tpu_torch.data.loaders import PrefetchLoader, get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
-from ser_tpu_torch.models.registry import get_model_spec
+from ser_tpu_torch.models.registry import QUEUED, get_model_spec
 from ser_tpu_torch.train.trainer import ModelTrainer
 from ser_tpu_torch.utils.paths import init_args
 from ser_tpu_torch.utils.seeding import seed_everything
@@ -63,19 +63,21 @@ def check_supported(args) -> None:
     try:
         get_model_spec(args.model)
     except KeyError as e:
-        raise KeyError(f"{e.args[0]}; the rest of the zoo is queued "
-                       "(ROADMAP A.10-A.12)") from None
+        raise KeyError(f"{e.args[0]}; queued (ROADMAP A.10-A.12): "
+                       + ", ".join(QUEUED)) from None
 
 
 def write_parameters_csv(path, columns: dict) -> None:
     """One column a fusion weight, one row an eval, as pandas' ``to_csv``
-    writes floats."""
+    writes floats and lists of floats (softmax(p) of nsps and no_en)."""
     names = list(columns)
+    cell = lambda v: (repr(float(v)) if np.ndim(v) == 0  # noqa: E731
+                      else str([float(x) for x in v]))
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(names)
         for row in zip(*(columns[n] for n in names)):
-            w.writerow([repr(float(v)) for v in row])
+            w.writerow([cell(v) for v in row])
 
 
 def main(args):

@@ -452,3 +452,59 @@ def test_meld_request_launches_the_recurrence_kernel(cuda):
     assert LAUNCHES[tlsthm.NAME] == before + 1
     torch.testing.assert_close(logp.cpu(), cpu.predict(x, qmask, umask)[0],
                                rtol=1e-3, atol=1e-4)
+
+
+VARIANTS = ("MARN1_sp", "MARN1_cf", "MARN1_azs", "MARN1_sps", "MARN1_nsps", "MARN1_no_en")
+
+
+@pytest.mark.parametrize("P", [2, 9])
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_request_launches_rank1_a_step_and_matches_cpu(cuda, name, P):
+    """A rank-1 MARN1 variant's request on the card launches the rank-1
+    kernel once a step (both directions in one launch) and no recurrence
+    kernel, and agrees with the CPU, which runs the plain version, at rtol
+    1e-3, atol 1e-4."""
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.serving import Predictor
+
+    T, B = 20, 6
+    meld = dict(n_classes=7, d_audio=300, d_visual=600, n_parties=9) if P == 9 else {}
+    batch = synthetic_batch(L=T, B=B, seed=3, min_len=5, **meld)
+    x, qmask, umask = get_model_spec(name).make_inputs(batch)
+    gpu = Predictor(name, seed=0, n_classes=7 if P == 9 else 6)
+    cpu = Predictor(name, state_dict={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+                    device="cpu", n_classes=7 if P == 9 else 6)
+    before = dict(LAUNCHES)
+    logp = gpu.predict(x, qmask, umask)[0]
+    torch.cuda.synchronize()
+    assert LAUNCHES[trank1.NAME] == before.get(trank1.NAME, 0) + T
+    assert LAUNCHES[tlsthm.NAME] == before.get(tlsthm.NAME, 0)
+    torch.testing.assert_close(logp.cpu(), cpu.predict(x, qmask, umask)[0],
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_train_step_card_matches_cpu(cuda, name):
+    T = 16
+    batch = synthetic_batch(L=T, B=4, seed=2, min_len=6)
+    trainers = {d: ModelTrainer(device=d, model=name, seed=3) for d in ("cpu", "cuda")}
+    _randomize_constants([t.model for t in trainers.values()])
+    before = LAUNCHES[trank1.NAME]
+    losses = {}
+    for d, t in trainers.items():
+        _no_dropout(t.model)
+        losses[d] = t._train_step_impl(batch, 1e-3).item()
+    # T forward, T backward; nsps and no_en leave z out of a step's output,
+    # so the last step's z reaches no loss and has no backward
+    assert LAUNCHES[trank1.NAME] == before + 2 * T - (name in ("MARN1_nsps", "MARN1_no_en"))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    cpu = dict(trainers["cpu"].model.named_parameters())
+    card = dict(trainers["cuda"].model.named_parameters())
+    top = max(p.grad.abs().max().item() for p in cpu.values() if p.grad is not None)
+    for pname, p in cpu.items():
+        q = card[pname]
+        assert (p.grad is None) == (q.grad is None), pname
+        if p.grad is not None:
+            tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
+            assert (q.grad.cpu() - p.grad).abs().max().item() <= tol, pname
+        assert (q.detach().cpu() - p.detach()).abs().max().item() <= 2.05e-3, pname

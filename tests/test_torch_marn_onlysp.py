@@ -87,8 +87,8 @@ def test_to_jax_params_inverts_from_jax_params(jax_params):
 
 
 def test_from_jax_params_rejects_unknown_name():
-    with pytest.raises(KeyError, match="no MARN1_onlysp home"):
-        from_jax_params({"marn_cell_f/lsthm_q_W_kernel": np.zeros((2, 2))})
+    with pytest.raises(KeyError, match="no MARN1 home"):
+        from_jax_params({"marn_cell_f/lsthm_z_W_kernel": np.zeros((2, 2))})
 
 
 def test_synthetic_batches_equal_the_jax_packages():

@@ -82,9 +82,9 @@ def _disable_jax_dropout(monkeypatch):
             monkeypatch.setattr(mod, "rank1_cross_attention", r1_det)
 
 
-def run_step(res_csv, batch=None, n_classes=6, init=None):
-    """Both packages' step from one init, dropout off: the JAX loss,
-    gradients and updated parameters from one jitted call of the JAX
+def run_step(res_csv, batch=None, n_classes=6, init=None, model="MARN1_onlysp"):
+    """Both packages' step of ``model`` from one init, dropout off: the JAX
+    loss, gradients and updated parameters from one jitted call of the JAX
     trainer's ``_train_step_impl`` (its gradients caught from its
     ``jax.value_and_grad``); the port's trainer after its step. ``batch``
     defaults to an IEMOCAP-shaped one at [L, B]; ``init`` maps the JAX
@@ -94,7 +94,7 @@ def run_step(res_csv, batch=None, n_classes=6, init=None):
     mp = pytest.MonkeyPatch()
     try:
         _disable_jax_dropout(mp)
-        jt = JModelTrainer(model="MARN1_onlysp", seed=3, n_classes=n_classes,
+        jt = JModelTrainer(model=model, seed=3, n_classes=n_classes,
                            res_csv_path=res_csv)
         caught = {}
         value_and_grad = jax.value_and_grad
@@ -116,7 +116,7 @@ def run_step(res_csv, batch=None, n_classes=6, init=None):
     finally:
         mp.undo()
 
-    pt = ModelTrainer(device="cpu", seed=3, lr=LR, n_classes=n_classes,
+    pt = ModelTrainer(device="cpu", model=model, seed=3, lr=LR, n_classes=n_classes,
                       res_csv_path=res_csv)
     pt.model.load_state_dict(from_jax_params(flatten_params(params)), strict=True)
     no_dropout(pt.model)
