@@ -110,7 +110,27 @@ Phases, each fatal on failure:
     on a MELD request [32, 80], P = 9, card against CPU; (d) ``python -m
     ser_tpu_torch.train --model MARN1_nsps --synthetic --epoch 2`` on the
     card and ``python -m ser_tpu_torch.predict --model MARN1_nsps`` on its
-    epoch-2 checkpoint, which must report ``score.txt``'s Acc and F1.
+    epoch-2 checkpoint, which must report ``score.txt``'s Acc and F1 (both
+    CLIs in this process);
+10. mf, la and newz, which run no kernel of the port (their loops are eager
+    ops; the audio slot the MFCC kernel fills is one they never read),
+    seeded full-width weights: (a) an IEMOCAP feature request at [82, 31]
+    card against CPU (rtol 1e-3, atol 1e-4; on a miss, both sides against
+    f64 on the CPU), every kernel counter of the port 0, ms a request
+    (median of 10), kernel launches and device idle share (profile of 3);
+    (b) train steps at [110, 80]: no port kernel, ms a step (median of 3),
+    peak memory, kernel launches and idle share (profile of one step), the
+    loop's forward and backward between two readings of the step; one step
+    card against CPU at [32, 16] (dropout off, constants made random): loss,
+    gradients, dead set, Adam update; (c) mf and newz on the MELD request
+    [32, 80], P = 9, card against CPU; (d) newz streamed: a 110-utterance
+    dialogue (IEMOCAP's longest) through ``NewZStream`` (max_len 128) on the
+    card, held against ``MARN1NewZ(causal_encoder=True)``'s batch forward on
+    the card and the stream on the CPU (rtol 1e-4, atol 1e-5), ms a new
+    utterance (median, p90), kernel launches an append, the drift from the
+    bidirectional forward; (e) ``python -m ser_tpu_torch.serve stream
+    --device cuda``, and the newz train CLI for 2 epochs with the predict
+    CLI on its checkpoint (all three in this process).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -195,6 +215,14 @@ VARIANT_CHECK_SHAPE = (32, 16)  # phase 9's card-against-CPU step, [110, 80] for
 # no loss and autograd runs no backward of the rank-1 kernel for it: 2T - 1
 # launches a train step where the others take 2T
 Z_NOT_IN_OUTPUT = ("MARN1_nsps", "MARN1_no_en")
+# phase 10's models, which run no kernel of the port, and their dead sets
+# (tests/test_torch_marn_rest_train.py holds the names against the JAX
+# package's all-zero gradients)
+REST = ("MARN1_mf", "MARN1_la", "MARN1_newz")
+REST_DEAD = {"MARN1_mf": 10, "MARN1_la": 78, "MARN1_newz": 26}
+# the streamed dialogue: IEMOCAP's longest (110 utterances, the reference
+# train shape's L) in a history of serve.py stream's default capacity
+STREAM_L, STREAM_MAX_LEN = 110, 128
 
 
 def check(cond, msg):
@@ -348,7 +376,13 @@ def read_res_csv(path):
 
 def device_profile(torch, fn, n):
     """Device events of ``n`` calls of ``fn`` under ``torch.profiler``:
-    ``(wall ms, busy ms, events)`` with events the kernels and copies."""
+    ``(wall ms, busy ms, events)`` with events the kernels and copies, one
+    a name (``key``, ``count``, ``self_device_time_total`` in us, as
+    ``key_averages`` gives them). They are summed from the tracer's own
+    records: ``key_averages`` first builds every host op's tree, which costs
+    seconds for a train step's 20-27 k launches."""
+    from types import SimpleNamespace
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -359,9 +393,17 @@ def device_profile(torch, fn, n):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels and copies: not host ops, and not the optimizer's annotation
     # of the device span its own kernels fill
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith(("Activity Buffer", "Optimizer."))]
+    events = {}
+    for r in prof.profiler.kineto_results.events():
+        name = r.name()
+        if (r.device_type() != torch.autograd.DeviceType.CUDA
+                or name.startswith(("Activity Buffer", "Optimizer."))):
+            continue
+        e = events.setdefault(name, SimpleNamespace(key=name, count=0,
+                                                    self_device_time_total=0.0))
+        e.count += 1
+        e.self_device_time_total += r.duration_ns() / 1e3
+    events = list(events.values())
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     return wall_ms, busy_ms, events
 
@@ -715,24 +757,29 @@ def rank1_timings(torch, card, dev, rank1_kernel, rank1_seed):
     return rank1_ms, r1_plain_ms, rb, sdpa_ms["both"]
 
 
-def variant_recurrence_ms(torch, marn_variants, trainer, batch):
-    """``(forward ms, backward ms)`` of a variant's recurrence inside a
-    train step at ``batch``: ``fused_directions`` called again on the inputs
-    one train forward gave it, made leaves so the backward stops there,
-    timed with CUDA events (median of 3); the backward of a random output
-    gradient through those leaves and the cells' parameters."""
-    real, seen = marn_variants.fused_directions, []
-    marn_variants.fused_directions = lambda *a: seen.append(a) or real(*a)
+def loop_ms(torch, module, fn_name, trainer, batch):
+    """``(forward ms, backward ms)`` of a model's recurrence loop inside a
+    train step at ``batch``: ``module.fn_name`` (``marn_variants.
+    fused_directions``, ``marn_newz.recurrence``) called again on the
+    arguments one train forward gave it, their tensors made leaves so the
+    backward stops there, timed with CUDA events (median of 3); the backward
+    of a random output gradient through those leaves and the parameters the
+    loop reads."""
+    real, seen = getattr(module, fn_name), []
+    setattr(module, fn_name, lambda *a: seen.append(a) or real(*a))
     try:
         with torch.no_grad():
             trainer.model.train()(*trainer.predictor.batch_inputs(batch),
                                   generator=trainer.generator)
     finally:
-        marn_variants.fused_directions = real
-    cell_f, cell_b, inputs_f, inputs_b, *rest = seen[0]
-    leaf = lambda t: t.detach().requires_grad_() if t.is_floating_point() else t  # noqa: E731
-    ins_f, ins_b = tuple(map(leaf, inputs_f)), tuple(map(leaf, inputs_b))
-    run = lambda: real(cell_f, cell_b, ins_f, ins_b, *rest)  # noqa: E731
+        setattr(module, fn_name, real)
+
+    def leaf(a):
+        if torch.is_tensor(a):
+            return a.detach().requires_grad_() if a.is_floating_point() else a
+        return type(a)(map(leaf, a)) if isinstance(a, (tuple, list)) else a
+    args = tuple(map(leaf, seen[0]))
+    run = lambda: real(*args)  # noqa: E731
     fwd_ms = cuda_ms(torch, run, warmup=1, iters=3)
     ys = run()
     gy = torch.randn_like(ys)
@@ -842,7 +889,8 @@ def variant_phase(torch, card, eval_batch, meld_test, names):
         n_kernels, busy_ms, r1_ms = kernel_split(events, 1)
         # the recurrence's share, between two readings of the step: the
         # host's speed drifts within a call
-        fwd_ms, bwd_ms = variant_recurrence_ms(torch, marn_variants, trainer, train_batch)
+        fwd_ms, bwd_ms = loop_ms(torch, marn_variants, "fused_directions", trainer,
+                                 train_batch)
         step_again_ms = cuda_ms(torch, step, warmup=0, iters=3)
         share = 200 * (fwd_ms + bwd_ms) / (step_ms + step_again_ms)
         print(f"[time] {card} | {name} train step [{TRAIN_L}, {TRAIN_B}]: {step_ms:.2f} ms "
@@ -888,40 +936,255 @@ def variant_phase(torch, card, eval_batch, meld_test, names):
         del trainers
 
     # (d) the train CLI on the card, then the predict CLI on its checkpoint
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_variant_cli_") as tmp:
+    _, params_csv, rep = train_predict_cli("MARN1_nsps")
+    p_weights = rep["fusion_weights"]["p"]
+    print(f"[cli] MARN1_nsps softmax(p) {p_weights}")
+    check(params_csv[0] == "p" and len(params_csv) == 3,
+          f"train CLI MARN1_nsps: parameters.csv {params_csv}")
+    check(len(p_weights) == 2 and abs(sum(p_weights) - 1) < 1e-6, "softmax(p) in the JSON")
+    return launches
+
+
+def train_predict_cli(name):
+    """The train CLI (``python -m ser_tpu_torch.train --model name
+    --synthetic --epoch 2``) on the card in this process, then the predict
+    CLI on its epoch-2 checkpoint, which must report ``score.txt``'s Acc and
+    F1. Returns ``(score lines, parameters.csv lines, predict JSON)``."""
+    from ser_tpu_torch import predict as predict_cli
+    from ser_tpu_torch.train import __main__ as train_cli
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         tmp = Path(tmp)
         exp = tmp / "exp"
         t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "ser_tpu_torch.train", "--model", "MARN1_nsps",
-             "--synthetic", "--epoch", "2", "--batch_size", str(TRAIN_B), "--save_path",
-             str(exp)], cwd=tmp, capture_output=True, text=True, timeout=600,
-            env={**os.environ, "PYTHONPATH": str(ROOT)})
-        print(f"[cli] train CLI MARN1_nsps, 2 epochs: exit {run.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s")
-        check(run.returncode == 0, f"train CLI exited {run.returncode}:\n{run.stderr[-3000:]}")
+        run_quiet(in_dir, tmp, train_cli.main, train_cli.parser_args(
+            ["--model", name, "--synthetic", "--epoch", "2", "--batch_size", str(TRAIN_B),
+             "--save_path", str(exp)]))
+        print(f"[cli] train CLI {name}, 2 epochs, in process: {time.perf_counter() - t0:.1f} s")
         lines = score_lines(exp / "score.txt")
         for line in lines:
             print(f"[cli]   score.txt: {line}")
+        check(len(lines) == 2, f"train CLI {name}: {len(lines)} score lines")
         params_csv = (tmp / "parameters.csv").read_text().splitlines()
-        check(len(lines) == 2 and params_csv[0] == "p" and len(params_csv) == 3,
-              f"train CLI MARN1_nsps: {len(lines)} score lines, parameters.csv {params_csv}")
-        run = subprocess.run(
-            [sys.executable, "-m", "ser_tpu_torch.predict", "--model", "MARN1_nsps",
-             "--synthetic", "--initial_model", str(exp / "model" / "model_0002.model"),
-             "--res_csv", str(tmp / "predict.csv")],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        check(run.returncode == 0, f"predict CLI exited {run.returncode}:\n{run.stderr[-3000:]}")
-        check("is not in the model" not in run.stdout, "predict CLI skipped checkpoint names")
-        rep = json.loads(run.stdout[run.stdout.index("{"):])
+        out = run_quiet(predict_cli.main, [
+            "--model", name, "--synthetic", "--initial_model",
+            str(exp / "model" / "model_0002.model"), "--res_csv", str(tmp / "predict.csv")])
+        check("is not in the model" not in out, "predict CLI skipped checkpoint names")
+        rep = json.loads(out[out.index("{"):])
         scored = re.search(r"Acc ([\d.]+), Fscore ([\d.]+)", lines[1]).groups()
         predicted = (f"{rep['weighted_accuracy']:.2f}", f"{rep['weighted_f1']:.2f}")
-        p_weights = rep["fusion_weights"]["p"]
-        print(f"[cli] predict MARN1_nsps on model_0002: Acc {predicted[0]}, F1 {predicted[1]}, "
-              f"softmax(p) {p_weights}; score.txt epoch 2: Acc {scored[0]}, Fscore {scored[1]}")
-        check(predicted == scored, "MARN1_nsps: the predict CLI's Acc/F1 differ from score.txt's")
-        check(len(p_weights) == 2 and abs(sum(p_weights) - 1) < 1e-6, "softmax(p) in the JSON")
-    return launches
+        print(f"[cli] predict {name} on model_0002: Acc {predicted[0]}, F1 {predicted[1]}; "
+              f"score.txt epoch 2: Acc {scored[0]}, Fscore {scored[1]}")
+        check(predicted == scored, f"{name}: the predict CLI's Acc/F1 differ from score.txt's")
+    return lines, params_csv, rep
+
+
+def no_port_kernel(torch, what):
+    """Fail unless every kernel counter of the port still reads 0."""
+    from ser_tpu_torch.ops.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    check(not launched, f"{what} launched port kernels {launched}; none is on its path")
+
+
+def f64_drift(torch, name, state, inputs, n_classes, card_out, cpu_out):
+    """After a failed card-against-CPU request: the same request in f64 on
+    the CPU, and how far the card's and the CPU's f32 outputs lie from it."""
+    from ser_tpu_torch.models.registry import build_model
+    from ser_tpu_torch.ops.init import generator
+
+    model = build_model(name, generator(0), n_classes)
+    model.load_state_dict(state)
+    model.double().eval()
+    with torch.inference_mode():
+        ref = model(*(torch.as_tensor(a, dtype=torch.float64) for a in inputs))[0]
+    print(f"[rest] {name} against f64 on the CPU: max|card - f64| "
+          f"{(card_out.double() - ref).abs().max().item():.3e}, max|CPU f32 - f64| "
+          f"{(cpu_out.double() - ref).abs().max().item():.3e}, max|f64| "
+          f"{ref.abs().max().item():.3e}")
+
+
+def rest_phase(torch, card, eval_batch, meld_test, names):
+    """Phase 10 (the module docstring)."""
+    import copy
+
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.models import marn_newz, marn_variants
+    from ser_tpu_torch.models.marn_newz import MARN1NewZ
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.ops.kernels import reset_launches
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.serving import Predictor
+    from ser_tpu_torch.streaming import NewZStream
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    import numpy as np
+
+    n_utts = int(eval_batch["umask"].sum())
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    meld_batch = next(iter(meld_test))
+    for name in names:
+        # (a) a feature request at the IEMOCAP eval shape and (c) for mf and
+        #     newz a MELD request, card against CPU, no kernel of the port
+        spec = get_model_spec(name)
+        requests = [("request", eval_batch, 6)]
+        if name in ("MARN1_mf", "MARN1_newz"):
+            requests.append(("MELD request", meld_batch, 7))
+        for label, batch, C in requests:
+            inputs = spec.make_inputs(batch)
+            shape = list(inputs[1].shape)
+            gpu = Predictor(name, seed=0, device="cuda", n_classes=C)
+            state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+            cpu = Predictor(name, state_dict=state, device="cpu", n_classes=C)
+            reset_launches()
+            out = gpu.predict(*inputs)[0]
+            no_port_kernel(torch, f"{name} {label}")
+            out, ref = out.cpu(), cpu.predict(*inputs)[0]
+            err = (out - ref).abs().max().item()
+            ok = torch.allclose(out, ref, rtol=1e-3, atol=1e-4)
+            print(f"[rest] {name} {label} {shape}: no port kernel launched, max|gpu-cpu| "
+                  f"{err:.3e}, max|out| {ref.abs().max().item():.3e}")
+            if not ok:
+                f64_drift(torch, name, state, inputs, C, out, ref)
+            check(torch.isfinite(out).all().item() and out.shape == ref.shape,
+                  f"{name} {label}: non-finite or misshapen outputs")
+            check(ok, f"{name} {label}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+            if label == "request":
+                request = lambda: gpu.predict(*inputs)  # noqa: E731
+                req_ms = cuda_ms(torch, request, warmup=2, iters=10)
+                wall, busy, events = device_profile(torch, request, 3)
+                n_kernels, busy_ms, _ = kernel_split(events, 3)
+                print(f"[time] {card} | {name} request {shape[:2]}: {req_ms:.4f} ms "
+                      f"(median of 10), {n_utts / req_ms * 1e3:.1f} utterances/s; profile "
+                      f"of 3: {n_kernels:.0f} kernel launches a request, device busy "
+                      f"{busy_ms:.4f} ms a request, idle {100 * (1 - busy / wall):.1f}% of "
+                      f"{wall / 3:.3f} ms")
+            del gpu, cpu
+
+        # (b) train steps at [110, 80]: no kernel of the port, time, peak
+        #     memory, profile, the recurrence loop's share
+        trainer = ModelTrainer(model=name, seed=0, lr=TRAIN_LR)
+        step = lambda: trainer._train_step_impl(train_batch, TRAIN_LR)  # noqa: E731
+        reset_launches()
+        step()  # also the warm-up
+        no_port_kernel(torch, f"{name} train step")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(torch, step, warmup=0, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, events = device_profile(torch, step, 1)
+        n_kernels, busy_ms, _ = kernel_split(events, 1)
+        loop = ((marn_newz, "recurrence") if name == "MARN1_newz"
+                else (marn_variants, "fused_directions"))
+        fwd_ms, bwd_ms = loop_ms(torch, *loop, trainer, train_batch)
+        step_again_ms = cuda_ms(torch, step, warmup=0, iters=3)
+        share = 200 * (fwd_ms + bwd_ms) / (step_ms + step_again_ms)
+        print(f"[time] {card} | {name} train step [{TRAIN_L}, {TRAIN_B}]: {step_ms:.2f} ms "
+              f"(median of 3), peak {peak:.4f} GiB; profile of one step: {n_kernels:.0f} "
+              f"kernel launches, wall {wall:.2f} ms, busy {busy_ms:.3f} ms (idle "
+              f"{100 * (1 - busy / wall):.1f}%); then the loop forward {fwd_ms:.2f} ms, "
+              f"backward {bwd_ms:.2f} ms, then the step {step_again_ms:.2f} ms: the loop "
+              f"{share:.1f}% of a step")
+        del trainer, step
+
+        # one step card against CPU, dropout off, constants made random
+        L_c, B_c = VARIANT_CHECK_SHAPE
+        check_batch = synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2)
+        trainers = {d: ModelTrainer(device=d, model=name, seed=0, lr=TRAIN_LR)
+                    for d in ("cpu", "cuda")}
+        randomize_constants(torch, [t.model for t in trainers.values()], seed=1)
+        loss = {}
+        reset_launches()
+        for d, t in trainers.items():
+            no_dropout(t.model, Dropout)
+            loss[d] = t._train_step_impl(check_batch, TRAIN_LR).item()
+        no_port_kernel(torch, f"{name} check step")
+        worst, dead_cpu, dead_card = grad_check(torch, trainers["cpu"].model,
+                                                trainers["cuda"].model)
+        moved = max((p.detach().cpu() - q.detach()).abs().max().item() for p, q in zip(
+            trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters()))
+        loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        print(f"[rest] {name} one step [{L_c}, {B_c}] card vs CPU: |loss| rel "
+              f"{loss_rel:.3e}, gradients {worst:.3f} of the tolerance, {len(dead_card)} "
+              f"parameters with no gradient, max |param card - CPU| after Adam "
+              f"{moved / TRAIN_LR:.3f} lr")
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{name} step loss: card and CPU disagree")
+        check(worst <= 1.0, f"{name} step gradients: card and CPU disagree")
+        check(dead_cpu == dead_card and len(dead_card) == REST_DEAD[name],
+              f"{name} dead parameters: CPU {len(dead_cpu)}, card {len(dead_card)}, "
+              f"want {REST_DEAD[name]}")
+        check(moved <= 2.05 * TRAIN_LR, f"{name} Adam updates: card and CPU differ")
+        del trainers
+
+    # (d) newz streamed: one dialogue of IEMOCAP's longest length through
+    #     NewZStream on the card, against its causal batch forward on the
+    #     card and the stream on the CPU; ms a new utterance, launches an
+    #     append, the drift from the bidirectional forward
+    x, qmask, _ = get_model_spec("MARN1_newz").make_inputs(
+        synthetic_batch(L=STREAM_L, B=1, seed=5, min_len=STREAM_L))
+    x, qmask = x[:, 0], qmask[:, 0]
+    models = {"cpu": MARN1NewZ(generator=generator(0), causal_encoder=True).eval()}
+    models["cuda"] = copy.deepcopy(models["cpu"]).cuda()
+    streams = {d: NewZStream(m, max_len=STREAM_MAX_LEN) for d, m in models.items()}
+    stream = streams["cuda"]
+    stream.append(x[0], qmask[0])  # warm-up
+    stream.reset()
+    reset_launches()
+    t_per, logits = [], []
+    for t in range(STREAM_L):
+        t0 = time.perf_counter()
+        logits.append(stream.append(x[t], qmask[t]))
+        t_per.append((time.perf_counter() - t0) * 1e3)
+    no_port_kernel(torch, "the newz stream")
+    logits = np.stack(logits)
+    cpu_logits = np.stack([streams["cpu"].append(x[t], qmask[t]) for t in range(STREAM_L)])
+    xt, qt = torch.from_numpy(x[:, None]).cuda(), torch.from_numpy(qmask[:, None]).cuda()
+    with torch.inference_mode():
+        causal = models["cuda"](xt, qt)[0].cpu().numpy()
+        models["cuda"].causal_encoder = False
+        bidir = models["cuda"](xt, qt)[0].cpu().numpy()
+    stream.reset()
+    rows = iter(range(STREAM_L))
+    wall, busy, events = device_profile(
+        torch, lambda: (lambda t: stream.append(x[t], qmask[t]))(next(rows)), 20)
+    n_kernels, busy_ms, _ = kernel_split(events, 20)
+    err_causal = float(np.abs(logits - causal).max())
+    err_cpu = float(np.abs(logits - cpu_logits).max())
+    print(f"[time] {card} | MARN1_newz stream, {STREAM_L} utterances, max_len "
+          f"{STREAM_MAX_LEN}: {statistics.median(t_per):.4f} ms a new utterance (median), "
+          f"p90 {float(np.percentile(t_per, 90)):.4f}, first {t_per[0]:.4f}, last "
+          f"{t_per[-1]:.4f}; profile of 20 appends: {n_kernels:.0f} kernel launches an "
+          f"append, device busy {busy_ms:.4f} ms an append, idle "
+          f"{100 * (1 - busy / wall):.1f}%")
+    print(f"[rest] MARN1_newz stream: max|stream - causal batch forward| {err_causal:.3e}, "
+          f"max|card - CPU stream| {err_cpu:.3e}; against the bidirectional forward: "
+          f"argmax agreement {float((logits.argmax(-1) == bidir.argmax(-1)).mean()):.4f}, "
+          f"max logit drift {float(np.abs(logits - bidir).max()):.4f}")
+    check(np.isfinite(logits).all() and logits.shape == (STREAM_L, 6), "stream logits")
+    check(np.allclose(logits, causal, rtol=1e-4, atol=1e-5),
+          "the stream and its causal batch forward disagree beyond rtol 1e-4, atol 1e-5")
+    check(np.allclose(logits, cpu_logits, rtol=1e-4, atol=1e-5),
+          "the stream on the card and on the CPU disagree beyond rtol 1e-4, atol 1e-5")
+
+    # (e) the CLIs: serve stream on the card; the newz train CLI, then the
+    #     predict CLI on its checkpoint
+    from ser_tpu_torch import serve as serve_cli
+
+    t0 = time.perf_counter()
+    out = run_quiet(serve_cli.main, ["stream", "--device", "cuda"])
+    rep = json.loads(out[out.index("{"):])
+    print(f"[cli] {card} | python -m ser_tpu_torch.serve stream --device cuda, in process: "
+          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(rep))
+    check({"ms_per_new_utterance_median", "ms_per_new_utterance_p90",
+           "argmax_agreement_vs_bidirectional", "max_logit_drift_vs_bidirectional",
+           "contract"} <= set(rep), "serve stream's JSON keys")
+    _, params_csv, rep = train_predict_cli("MARN1_newz")
+    w = rep["fusion_weights"]["w"]
+    print(f"[cli] MARN1_newz raw w {w}")
+    check(params_csv[0] == "w" and len(params_csv) == 3,
+          f"train CLI MARN1_newz: parameters.csv {params_csv}")
+    check(len(w) == 2, "MARN1_newz's raw w in the JSON")
 
 
 def main() -> int:
@@ -1739,6 +2002,11 @@ def main() -> int:
     variant_launches = variant_phase(torch, card, eval_batch, meld_test, VARIANTS)
     print(f"[variant] phase 9 in {time.perf_counter() - t0:.1f} s; {RANK1} launches by "
           f"path: {variant_launches}")
+
+    # 10. mf, la and newz, served, trained and streamed on the card
+    t0 = time.perf_counter()
+    rest_phase(torch, card, eval_batch, meld_test, REST)
+    print(f"[rest] phase 10 in {time.perf_counter() - t0:.1f} s")
     meld_tmp.cleanup()
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
                       **variant_launches}

@@ -6,17 +6,25 @@
 torch keys the port's modules use. Dense kernels ``[in, out]`` are
 transposed to ``[out, in]``; the per-step rank-1 attention vectors ``[D]``
 become ``[1, D]``. The mapping covers every model the port has
-(``MARN1_onlysp`` and the variants sp, cf, azs, sps, nsps and no_en), and
-for each its keys equal the JAX package's
+(``MARN1_onlysp``, the variants sp, cf, azs, sps, nsps, no_en, mf and la,
+and ``MARN1_newz``), and for each its keys equal the JAX package's
 ``compat.torch_export.export_state_dict(params, NAME, prefix="")``. This is
 the port's own copy of that mapping. ``to_jax_params`` is its inverse, which
 writes a port state dict as the JAX package's checkpoint names.
 
-The names differ from the keys in three ways: a cell's own parameters are
+The names differ from the keys in four ways: a cell's own parameters are
 flat leaves (``lsthm_q_U_kernel`` is ``lsthm_q.U.weight``,
-``gru_s_ih_kernel`` is ``gru_s.weight_ih``); a ``Sequential``'s index is
-joined with an underscore (``nn_out_0``, ``fc_0``, ``fc2_0``); and azs's
-cell encoders are ``marn_cell_f_encoder_l`` for ``marn_cell_f.encoder_l``.
+``gru_s_ih_kernel`` is ``gru_s.weight_ih``), and so are newz's root-level
+ones (``lsthm_l_W_kernel``, ``S_kernel``, ``att_0_kernel`` for
+``att.0.weight``, ``g_attention_trans_0_kernel`` for
+``g_attention.trans.0.weight``); a ``Sequential``'s index is joined with an
+underscore (``nn_out_0``, ``fc_0``, ``fc2_0``); and azs's cell encoders are
+``marn_cell_f_encoder_l`` for ``marn_cell_f.encoder_l``, where mf's and
+la's are modules of the cell (``marn_cell_f/encoder_l``, with their
+sequence attentions ``marn_cell_f/crossatt_l2a/Wq``). One key can so have
+two names (nsps's ``fc.0`` is the module ``fc_0``, newz's the leaf
+``fc_0_kernel``), and ``to_jax_params`` reads which from the whole state
+dict (``jax_layout``).
 """
 
 from __future__ import annotations
@@ -27,13 +35,19 @@ import numpy as np
 import torch
 
 _LSTHM = re.compile(r"(lsthm_[laq])_([WUVS])_(kernel|bias)")
-_RNN = re.compile(r"(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s)_(ih|hh)_(kernel|bias)")
+_RNN = re.compile(r"(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s|lstm_la_l|lstm_la_a)_(ih|hh)_"
+                  r"(kernel|bias)")
 _RANK1 = re.compile(r"(crossatt_l2a|crossatt_a2l)_(W[qkv])")
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _SCALARS = ("w", "v", "v1", "v2", "p")
 # a JAX module name that is two torch modules: a Sequential's index, azs's
 # encoders inside a cell
 _JOINED = re.compile(r"(nn_out|fc|fc2)_(\d+)|(marn_cell_[fb])_(encoder_[la])")
+# newz's root-level Linears, declared as flat leaves: ``S_kernel``,
+# ``att_cross_modal_0_bias``, ``g_attention_trans_3_kernel``
+_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention_trans)"
+                          r"(?:_(\d+))?_(kernel|bias)")
+_SEQ_ATT_HEAD = re.compile(r"(marn_cell_[fb]/)?crossatt_\w+")
 
 
 def _module_path(head: str) -> str:
@@ -48,24 +62,27 @@ def _module_path(head: str) -> str:
 def _convert(name: str, value: np.ndarray):
     """``(torch key, value in torch layout)`` for one flat JAX name."""
     head, _, leaf = name.rpartition("/")
-    if head in ("marn_cell_f", "marn_cell_b"):
+    t = lambda kind: value.T if kind == "kernel" else value  # noqa: E731
+    if head in ("marn_cell_f", "marn_cell_b", ""):
+        dot = f"{head}." if head else ""
         if m := _LSTHM.fullmatch(leaf):
             mod, mat, kind = m.groups()
-            key = f"{head}.{mod}.{mat}.{_LEAF[kind]}"
-            return key, value.T if kind == "kernel" else value
-        if m := _RNN.fullmatch(leaf):
+            return f"{dot}{mod}.{mat}.{_LEAF[kind]}", t(kind)
+        if head and (m := _RNN.fullmatch(leaf)):
             cell, side, kind = m.groups()
-            key = f"{head}.{cell}.{_LEAF[kind]}_{side}"
-            return key, value.T if kind == "kernel" else value
-        if m := _RANK1.fullmatch(leaf):
+            return f"{head}.{cell}.{_LEAF[kind]}_{side}", t(kind)
+        if head and (m := _RANK1.fullmatch(leaf)):
             return f"{head}.{m[1]}.{m[2]}", value.reshape(1, -1)
-    elif leaf in _LEAF and head:
-        return (f"{_module_path(head)}.{_LEAF[leaf]}",
-                value.T if leaf == "kernel" else value)
-    elif head.startswith("crossatt_") and "/" not in head and leaf in ("Wq", "Wk", "Wv"):
-        return f"{head}.{leaf}", value
-    elif not head and leaf in _SCALARS:
-        return leaf, value
+        if not head and (m := _ROOT_LINEAR.fullmatch(leaf)):
+            mod, idx, kind = m.groups()
+            mod = mod.replace("g_attention_trans", "g_attention.trans")
+            return f"{mod}.{idx + '.' if idx else ''}{_LEAF[kind]}", t(kind)
+        if not head and leaf in _SCALARS:
+            return leaf, value
+    elif leaf in _LEAF:
+        return f"{_module_path(head)}.{_LEAF[leaf]}", t(leaf)
+    elif _SEQ_ATT_HEAD.fullmatch(head) and leaf in ("Wq", "Wk", "Wv"):
+        return f"{_module_path(head)}.{leaf}", value
     raise KeyError(f"no MARN1 home for JAX parameter '{name}'")
 
 
@@ -78,32 +95,55 @@ def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
-_KEY_LSTHM = re.compile(r"(marn_cell_[fb])\.(lsthm_[laq])\.([WUVS])\.(weight|bias)")
-_KEY_RNN = re.compile(r"(marn_cell_[fb])\.(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s)\."
-                      r"(weight|bias)_(ih|hh)")
+_KEY_LSTHM = re.compile(r"(?:(marn_cell_[fb])\.)?(lsthm_[laq])\.([WUVS])\.(weight|bias)")
+_KEY_RNN = re.compile(r"(marn_cell_[fb])\.(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s|lstm_la_l|"
+                      r"lstm_la_a)\.(weight|bias)_(ih|hh)")
 _KEY_RANK1 = re.compile(r"(marn_cell_[fb])\.(crossatt_l2a|crossatt_a2l)\.(W[qkv])")
 _KEY_SEQ_ATT = re.compile(r"(crossatt_\w+)\.(W[qkv])")
+_KEY_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention\.trans)"
+                              r"(?:\.(\d+))?\.(weight|bias)")
 _KEY_JOINED = re.compile(  # whole dotted segments only
     r"(?<![^.])(?:(nn_out|fc|fc2)\.(\d+)|(marn_cell_[fb])\.(encoder_[la]))(?![^.])")
+_KEY_SEQ_JOINED = re.compile(r"(?<![^.])(nn_out|fc|fc2)\.(\d+)(?![^.])")
 
 
-def _to_jax(key: str, v: np.ndarray):
-    """``(flat JAX name, value in JAX layout)`` for one port key."""
+def jax_layout(state_dict) -> str:
+    """How the JAX package names a model's parameters: ``"newz"`` (its
+    root-level Linears are flat leaves), ``"cells"`` (mf and la: the cells
+    hold their encoders and sequence attentions, whose W is a matrix, as
+    modules) or ``"flat"`` (every other model)."""
+    if "S.weight" in state_dict:
+        return "newz"
+    wq = state_dict.get("marn_cell_f.crossatt_l2a.Wq")
+    return "cells" if wq is not None and wq.shape[0] > 1 else "flat"
+
+
+def _to_jax(key: str, v: np.ndarray, layout: str = "flat"):
+    """``(flat JAX name, value in JAX layout)`` for one port key of a model
+    named by ``layout`` (``jax_layout``)."""
     kind = {"weight": "kernel", "bias": "bias"}
     if m := _KEY_LSTHM.fullmatch(key):
         cell, mod, mat, leaf = m.groups()
-        return f"{cell}/{mod}_{mat}_{kind[leaf]}", v.T if leaf == "weight" else v
+        head = f"{cell}/" if cell else ""
+        return f"{head}{mod}_{mat}_{kind[leaf]}", v.T if leaf == "weight" else v
     if m := _KEY_RNN.fullmatch(key):
         cell, rnn, leaf, side = m.groups()
         return f"{cell}/{rnn}_{side}_{kind[leaf]}", v.T if leaf == "weight" else v
+    if layout == "newz" and (m := _KEY_ROOT_LINEAR.fullmatch(key)):
+        mod, idx, leaf = m.groups()
+        name = mod.replace(".", "_") + (f"_{idx}" if idx else "")
+        return f"{name}_{kind[leaf]}", v.T if leaf == "weight" else v
     if m := _KEY_RANK1.fullmatch(key):
+        if layout == "cells":  # a sequence attention of the cell
+            return f"{m[1]}/{m[2]}/{m[3]}", v
         return f"{m[1]}/{m[2]}_{m[3]}", v.reshape(-1)
     if m := _KEY_SEQ_ATT.fullmatch(key):
         return f"{m[1]}/{m[2]}", v
     if "." not in key:  # the fusion scalars w, v, v1, v2 and p
         return key, v
     head, leaf = key.rsplit(".", 1)
-    head = _KEY_JOINED.sub(lambda m: "_".join(p for p in m.groups() if p), head)
+    joined = _KEY_SEQ_JOINED if layout == "cells" else _KEY_JOINED
+    head = joined.sub(lambda m: "_".join(p for p in m.groups() if p), head)
     head = head.replace(".", "/")
     if leaf == "weight":  # a Dense kernel [out, in], or a LayerNorm scale
         return (f"{head}/kernel", v.T) if v.ndim == 2 else (f"{head}/scale", v)
@@ -111,10 +151,12 @@ def _to_jax(key: str, v: np.ndarray):
 
 
 def to_jax_params(state_dict) -> dict[str, np.ndarray]:
-    """The port's state dict -> flat JAX MARN1 parameters, as the JAX
+    """The port's state dict (a whole model's, so that ``jax_layout`` can
+    read its naming) -> flat JAX MARN1 parameters, in its order, as the JAX
     package's ``save_parameters`` names them."""
+    layout = jax_layout(state_dict)
     out = {}
     for key, value in state_dict.items():
-        name, v = _to_jax(key, value.detach().cpu().numpy())
+        name, v = _to_jax(key, value.detach().cpu().numpy(), layout)
         out[name] = np.ascontiguousarray(v, dtype=np.float32)
     return out

@@ -1,36 +1,41 @@
-"""The MARN1 ablation variants that run the per-step rank-1 attention: sp,
-cf, azs, sps, nsps and no_en (counterpart of
-``ser_tpu/models/marn_variants.py``).
+"""The MARN1 ablation variants (counterpart of
+``ser_tpu/models/marn_variants.py``): sp, cf, azs, sps, nsps and no_en, which
+run the per-step rank-1 attention, and mf and la, which do not.
 
 Each variant is a bidirectional dialogue recurrence with its own speaker
 memory (an LSTHM on the selected party state for sp, one shared LSTMCell for
-cf and azs, a per-party LSTMCell pair over compacted rows for sps, a GRU with
-a listener pass-through for nsps and no_en), two LSTHM cells per step and
-the rank-1 cross attention from c_l to c_a, then a head of its own. The
-reference's quirks are kept in the math: the sp/cf/azs broadcast scatter
-(the non-speaker slot takes the selected speaker's previous memory), sps's
-compaction whose speaker state is permuted against batch order, the nsps
-listener ``(1 - idx) mod P``, sp/cf/azs reading the text features' first 200
-dims as x_l and x_a.
+cf, azs, mf and la, a per-party LSTMCell pair over compacted rows for sps, a
+GRU with a listener pass-through for nsps and no_en), two LSTHM cells per
+step and, but for mf and la, the rank-1 cross attention from c_l to c_a,
+then a head of its own. mf's cells add a memory-fusion gate from their own
+sequence attentions (``lsthm_mf_gates``); la's gate their inputs by the
+softmax of two aux LSTMCells' cell states. The reference's quirks are kept
+in the math: the sp/cf/azs/mf/la broadcast scatter (the non-speaker slot
+takes the selected speaker's previous memory), sps's compaction whose
+speaker state is permuted against batch order, the nsps listener ``(1 -
+idx) mod P``, sp/cf/azs/mf/la reading the text features' first 200 dims as
+x_l and x_a, la's aux LSTMs both reading x_l.
 
 Both directions run as one Python loop over T (``fused_directions``, the
 JAX package's ``_fused_directions`` with the direction axis written out), in
-eval as in train. Every step calls the rank-1 attention once for both
-directions, bound once a call by ``ops.kernels.rank1.bind``: the CUDA kernel
-on the card (one launch a step in eval, and one more in the backward in
-train), the plain version on the CPU. In eval it is bound at p = 0 with a
-constant seed (the module's ``rank1_seed`` buffer, not in ``state_dict``);
-in train the seed and every dropout mask are drawn from the trainer's
-``torch.Generator`` (0.5 on the cells' h states where the reference has
-them, 0.2 in the attention).
+eval as in train. Every step of the six rank-1 variants calls the rank-1
+attention once for both directions, bound once a call by
+``ops.kernels.rank1.bind``: the CUDA kernel on the card (one launch a step
+in eval, and one more in the backward in train), the plain version on the
+CPU. In eval it is bound at p = 0 with a constant seed (the module's
+``rank1_seed`` buffer, not in ``state_dict``); in train the seed and every
+dropout mask are drawn from the trainer's ``torch.Generator`` (0.5 on the
+cells' h states where the reference has them, 0.2 in the attention). mf's
+and la's loops bind nothing and draw nothing: their cells have no dropout.
 
 Parameter names and layouts are the reference's torch ones, so
 ``state_dict()`` keys equal the JAX package's
 ``export_state_dict(params, NAME, prefix="")``. Parameters the reference
 declares and never uses stay (the S projections where the LSTHM is 3-term,
 ``lstm_s``, the a2l rank-1 vectors, ``linear``, ``fc2``, cf's
-``crossatt_a2l``, no_en's ``encoder_l``): the forward never touches them,
-so their ``.grad`` stays None and Adam skips them.
+``crossatt_a2l``, no_en's ``encoder_l``, la's encoders, sequence attentions
+and V): the forward never touches them, so their ``.grad`` stays None and
+Adam skips them.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from ser_tpu_torch.ops.attention import (CrossAttentionReSeq, CrossAttentionSeq,
                                          CrossAttentionSeqLN, Rank1Weights,
                                          attention_tail)
 from ser_tpu_torch.ops.cells import (LSTHM, RNNCellWeights, gru_step, lsthm_gates,
-                                     lstm_step)
+                                     lsthm_mf_gates, lstm_step)
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.rank1 import bind as rank1_bind
 from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout
@@ -74,31 +79,38 @@ def _broadcast_scatter(sel, new, qmask_t):
 
 
 def fused_directions(cell_f, cell_b, inputs_f, inputs_b, step, init,
-                     generator, eval_seed, dropout_rate, attn_dropout):
+                     generator, eval_seed, dropout_rate, attn_dropout,
+                     attention: bool = True):
     """Both directions of a recurrence as one loop over T.
 
     ``cell.gather(*inputs) -> (seqs, consts)`` hoists the x-side
-    projections over all steps and fuses the state weights; the consts end
-    with the rank-1 wq, wk. Both directions are stacked on a leading axis of
-    2 (seqs ``[T, 2, ...]``, consts ``[2, ...]``). ``init(B, P)`` gives the
-    carry's shapes without the direction axis; the carry starts at zeros.
-    ``step(consts, carry, xs, t, attend, drop) -> (carry, y)`` is one step
-    of both directions. With ``generator`` (train), ``drop`` is inverted
-    dropout at ``dropout_rate`` and the attention drops at ``attn_dropout``
-    from one int32 seed, both drawn from the generator on its device; with
-    None (eval) ``drop`` is the identity and the attention is bound at p = 0
-    with ``eval_seed``. Returns the stacked ``y``, ``[T, 2, B, ...]``."""
+    projections over all steps and fuses the state weights; with
+    ``attention`` the consts end with the rank-1 wq, wk. Both directions are
+    stacked on a leading axis of 2 (seqs ``[T, 2, ...]``, consts ``[2,
+    ...]``). ``init(B, P)`` gives the carry's shapes without the direction
+    axis; the carry starts at zeros. ``step(consts, carry, xs, t, attend,
+    drop) -> (carry, y)`` is one step of both directions. With ``generator``
+    (train), ``drop`` is inverted dropout at ``dropout_rate`` and the
+    attention drops at ``attn_dropout`` from one int32 seed, both drawn from
+    the generator on its device; with None (eval) ``drop`` is the identity
+    and the attention is bound at p = 0 with ``eval_seed``. Without
+    ``attention`` (mf and la, whose cells hold no dropout either) ``attend``
+    is None, ``drop`` the identity, and nothing is drawn. Returns the
+    stacked ``y``, ``[T, 2, B, ...]``."""
     seqs_f, consts_f = cell_f.gather(*inputs_f)
     seqs_b, consts_b = cell_b.gather(*inputs_b)
     seqs = [torch.stack([f, b], 1) for f, b in zip(seqs_f, seqs_b)]
-    *consts, wq, wk = (torch.stack([f, b]) for f, b in zip(consts_f, consts_b))
-    if generator is None:
-        seed, p, drop = eval_seed, 0.0, (lambda x: x)
-    else:
-        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             device=generator.device, dtype=torch.int32)
-        p, drop = attn_dropout, partial(dropout, p=dropout_rate, generator=generator)
-    attend = rank1_bind(wq, wk, seed, p)  # wq, wk, seed, p checked once
+    consts = [torch.stack([f, b]) for f, b in zip(consts_f, consts_b)]
+    attend, drop = None, (lambda x: x)
+    if attention:
+        *consts, wq, wk = consts
+        if generator is None:
+            seed, p = eval_seed, 0.0
+        else:
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=generator.device, dtype=torch.int32)
+            p, drop = attn_dropout, partial(dropout, p=dropout_rate, generator=generator)
+        attend = rank1_bind(wq, wk, seed, p)  # wq, wk, seed, p checked once
     T, _, B = seqs[0].shape[:3]
     P = inputs_f[-1].shape[-1]  # every cell takes qmask last
     carry = tuple(seqs[0].new_zeros((2,) + s) for s in init(B, P))
@@ -223,6 +235,45 @@ def _nsps_step(consts, carry, xs, t, attend, drop):
     return (h_l, c_l, h_a, c_a, z, q), torch.cat([h_l, h_a], -1)
 
 
+def _mf_step(consts, carry, xs, t, attend, drop):
+    """mf: the shared LSTMCell on the selected party state, then the l and a
+    LSTHMs on [h, h_s] with the memory-fusion gate ``sigmoid(V x_la)`` (its
+    pre-activation hoisted over all steps); y = [h_l | h_a]."""
+    K_l, b_l, K_a, b_a, sWih, sbih, sWhh, sbhh = consts
+    h_l, c_l, h_a, c_a, h_s, c_s, q = carry
+    xlp, xap, zgl, zga, qm = xs
+    q0 = select_parties(q, qm)
+    h_s, c_s = lstm_step(torch.matmul(q0, sWih) + sbih, h_s, c_s, sWhh, sbhh)
+    q = _broadcast_scatter(q0, h_s, qm)
+    c_l, h_l = lsthm_mf_gates(xlp + torch.matmul(torch.cat([h_l, h_s], -1), K_l) + b_l,
+                              zgl, c_l)
+    c_a, h_a = lsthm_mf_gates(xap + torch.matmul(torch.cat([h_a, h_s], -1), K_a) + b_a,
+                              zga, c_a)
+    return (h_l, c_l, h_a, c_a, h_s, c_s, q), torch.cat([h_l, h_a], -1)
+
+
+def _la_step(consts, carry, xs, t, attend, drop):
+    """la: the shared LSTMCell as mf's, two aux LSTMCells on x_l (the
+    reference feeds x_l to both), the inputs gated by the softmax of their
+    cell states, then the l and a LSTHMs on [gated x, h, h_s] in one product
+    each; y = [h_l | h_a]."""
+    (K_l, b_l, K_a, b_a, sWih, sbih, sWhh, sbhh,
+     glWhh, glbhh, gaWhh, gabhh) = consts
+    h_l, c_l, h_a, c_a, h_s, c_s, hgl, cgl, hga, cga, q = carry
+    x_l, x_a, glp, gap, qm = xs
+    q0 = select_parties(q, qm)
+    h_s, c_s = lstm_step(torch.matmul(q0, sWih) + sbih, h_s, c_s, sWhh, sbhh)
+    q = _broadcast_scatter(q0, h_s, qm)
+    hgl, cgl = lstm_step(glp, hgl, cgl, glWhh, glbhh)
+    hga, cga = lstm_step(gap, hga, cga, gaWhh, gabhh)
+    in_l = torch.softmax(cgl, -1) * x_l
+    in_a = torch.softmax(cga, -1) * x_a
+    c_l, h_l = lsthm_gates(torch.matmul(torch.cat([in_l, h_l, h_s], -1), K_l) + b_l, c_l)
+    c_a, h_a = lsthm_gates(torch.matmul(torch.cat([in_a, h_a, h_s], -1), K_a) + b_a, c_a)
+    return ((h_l, c_l, h_a, c_a, h_s, c_s, hgl, cgl, hga, cga, q),
+            torch.cat([h_l, h_a], -1))
+
+
 class _Cell(nn.Module):
     """What every variant's cell declares: the l and a LSTHMs
     (``LSTHM(d_in, H, H, H)``) and the rank-1 vectors (l2a's Wq, Wk used;
@@ -325,6 +376,69 @@ class MARNCellNSPS(_Cell):
                  *self.rank1()))
 
 
+class _CellNoAttn(nn.Module):
+    """What mf's and la's cells declare (ref ``lsthm_mf.py``,
+    ``lsthm_la.py``): the l and a LSTHMs with an ``[H, H]`` V, the shared
+    speaker LSTMCell ``lstm_s``, the encoders (d_inner 50) and the two
+    sequence cross attentions, all inside the cell."""
+
+    def __init__(self, *, generator: torch.Generator):
+        super().__init__()
+        g = generator
+        self.lsthm_l = LSTHM(D_M, H, H, H, generator=g, v_out=H)
+        self.lsthm_a = LSTHM(D_M, H, H, H, generator=g, v_out=H)
+        self.lstm_s = RNNCellWeights(H, H, 4, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
+        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
+        self.crossatt_l2a = CrossAttentionSeq()
+        self.crossatt_a2l = CrossAttentionSeq()
+
+    def speaker_weights(self):
+        s = self.lstm_s
+        return s.weight_ih.T, s.bias_ih[None], s.weight_hh.T, s.bias_hh[None]
+
+
+class MARNCellMF(_CellNoAttn):
+    """mf (ref ``lsthm_mf.py:78-156``): each encoder once, on this
+    direction's own input (the backward cell encodes the reversed x); the
+    sequence attentions' outputs feed V, the memory-fusion gate of
+    ``lsthm_mf_gates``; 3-term LSTHMs on [h, h_s]."""
+
+    def encode(self, x, generator=None):
+        """``(x_l, x_a, x_la, x_al)``, time-major, from x's first 200 dims."""
+        enc = lambda e, xx: e(xx.transpose(0, 1), generator).transpose(0, 1)  # noqa: E731
+        x_l = enc(self.encoder_l, x[:, :, :D_M])
+        x_a = enc(self.encoder_a, x[:, :, D_M:2 * D_M])
+        return (x_l, x_a, self.crossatt_l2a(x_l, x_a, generator),
+                self.crossatt_a2l(x_a, x_l, generator))
+
+    def gather(self, x_l, x_a, x_la, x_al, qmask):
+        l, a = self.lsthm_l, self.lsthm_a
+        return ((l.W(x_l), a.W(x_a), l.V(x_la), a.V(x_al), qmask),
+                (*_state_weights(l.U, l.S), *_state_weights(a.U, a.S),
+                 *self.speaker_weights()))
+
+
+class MARNCellLA(_CellNoAttn):
+    """la (ref ``lsthm_la.py:76-165``): no z; the raw x_l and x_a gated by
+    the aux LSTMCells ``lstm_la_l`` and ``lstm_la_a`` (both read x_l), W, U
+    and S in one product. The encoders, the sequence attentions and V are
+    declared and never applied."""
+
+    def __init__(self, *, generator: torch.Generator):
+        super().__init__(generator=generator)
+        self.lstm_la_l = RNNCellWeights(D_M, D_M, 4, generator=generator)
+        self.lstm_la_a = RNNCellWeights(D_M, D_M, 4, generator=generator)
+
+    def gather(self, x_l, x_a, qmask):
+        l, a, gl, ga = self.lsthm_l, self.lsthm_a, self.lstm_la_l, self.lstm_la_a
+        aux = lambda rnn: torch.matmul(x_l, rnn.weight_ih.T) + rnn.bias_ih  # noqa: E731
+        return ((x_l, x_a, aux(gl), aux(ga), qmask),
+                (*_state_weights(l.W, l.U, l.S), *_state_weights(a.W, a.U, a.S),
+                 *self.speaker_weights(), gl.weight_hh.T, gl.bias_hh[None],
+                 ga.weight_hh.T, ga.bias_hh[None]))
+
+
 def _log_probs(nn_out, feats, generator):
     """The head ``Linear -> ReLU -> Dropout -> Linear -> log_softmax``,
     time-major ``[L, B, d]`` in, ``[B*L, C]`` out."""
@@ -348,12 +462,14 @@ class _Variant(nn.Module):
 
     dropout_rate = 0.5  # the cells' h states, where the reference has them
     attn_dropout = 0.2  # the per-step rank-1 attention
+    rank1 = True  # the cells' consts end with the rank-1 wq, wk
 
     def __init__(self, n_classes: int):
         super().__init__()
         self.n_classes = n_classes
-        self.register_buffer("rank1_seed", torch.zeros(1, dtype=torch.int32),
-                             persistent=False)
+        if self.rank1:
+            self.register_buffer("rank1_seed", torch.zeros(1, dtype=torch.int32),
+                                 persistent=False)
 
     def _generator(self, generator):
         """The generator every dropout draws from in train mode, which must
@@ -365,8 +481,8 @@ class _Variant(nn.Module):
 
     def _recurrence(self, inputs_f, inputs_b, step, init, generator):
         return fused_directions(self.marn_cell_f, self.marn_cell_b, inputs_f, inputs_b,
-                                step, init, generator, self.rank1_seed,
-                                self.dropout_rate, self.attn_dropout)
+                                step, init, generator, getattr(self, "rank1_seed", None),
+                                self.dropout_rate, self.attn_dropout, self.rank1)
 
     def _bidir(self, ys, umask, generator):
         """``[y_f | y_b]`` with y_b back in time order, each through its
@@ -575,3 +691,59 @@ class MARN1NSPS(_Variant):
         feats = torch.cat([pw[0] * torch.cat([h_l, attn2], -1),
                            pw[1] * torch.cat([h_a, attn1], -1)], -1)
         return _log_probs(self.nn_out, feats + resid_l, g), x_l, x_a
+
+
+class _NoAttnBidir(_Variant):
+    """MARN1_mf and MARN1_la (ref ``lsthm_mf.py:158-220``,
+    ``lsthm_la.py:166-228``; the JAX package's ``_NoAttnBidir``): the cells
+    over x's first 200 dims in both directions (the backward one reversed),
+    no rank-1 attention and no dropout in the loop, ``[y_f | y_b]`` through
+    ``dropout_rec`` and ``dropout_rec_b``, the head on 512 (``linear``
+    declared, unused). Returns ``(log_probs,)``."""
+
+    rank1 = False
+
+    def __init__(self, cell, n_classes: int, generator: torch.Generator):
+        super().__init__(n_classes)
+        g = generator
+        self.marn_cell_f = cell(generator=g)
+        self.marn_cell_b = cell(generator=g)
+        self.dropout_rec, self.dropout_rec_b = Dropout(0.5), Dropout(0.5)
+        self.nn_out = _head(4 * H, n_classes, g)
+        self.linear = TorchLinear(4 * H, 32, generator=g)  # unused
+
+    def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
+        g = self._generator(generator)
+        x = x[:, :, :2 * D_M]  # all the cells read
+        rev_x, rev_qmask = _reversed(umask, x, qmask)
+        ys = self._recurrence((*self._inputs(self.marn_cell_f, x, g), qmask),
+                              (*self._inputs(self.marn_cell_b, rev_x, g), rev_qmask),
+                              self.step, self.carry, g)
+        return (_log_probs(self.nn_out, self._bidir(ys, umask, g), g),)
+
+
+class MARN1MF(_NoAttnBidir):
+    """MARN1_mf: ``MARNCellMF`` in both directions."""
+
+    step = staticmethod(_mf_step)
+    carry = staticmethod(_carry(6))
+
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+        super().__init__(MARNCellMF, n_classes, generator)
+
+    def _inputs(self, cell, x, generator):
+        return cell.encode(x, generator)
+
+
+class MARN1LA(_NoAttnBidir):
+    """MARN1_la: ``MARNCellLA`` in both directions; the carry holds four
+    100-wide aux LSTM states beside the six 128-wide ones."""
+
+    step = staticmethod(_la_step)
+    carry = staticmethod(lambda B, P: [(B, H)] * 6 + [(B, D_M)] * 4 + [(B, P, H)])
+
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+        super().__init__(MARNCellLA, n_classes, generator)
+
+    def _inputs(self, cell, x, generator):
+        return x[:, :, :D_M], x[:, :, D_M:]

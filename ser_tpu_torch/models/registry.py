@@ -1,9 +1,12 @@
 """String-keyed model factory (counterpart of ``ser_tpu/models/registry.py``).
 
-Seven entries so far: the flagship ``MARN1_onlysp`` and the six ablation
+Ten entries so far: the flagship ``MARN1_onlysp``, the six ablation
 variants that run the rank-1 attention (``MARN1_sp``, ``MARN1_cf``,
-``MARN1_azs``, ``MARN1_sps``, ``MARN1_nsps``, ``MARN1_no_en``); ``QUEUED``
-names the JAX package's models the port has not yet. ``make_inputs``
+``MARN1_azs``, ``MARN1_sps``, ``MARN1_nsps``, ``MARN1_no_en``), the two
+without it (``MARN1_mf``, ``MARN1_la``) and the unidirectional
+``MARN1_newz``; ``QUEUED`` names the JAX package's models the port has not
+yet. As in the JAX registry, ``MARN1_newz`` has 6 outputs whatever
+``n_classes`` says. ``make_inputs``
 follows the reference trainer for all of them: x = cat(mean of the four
 RoBERTa views, audio), from a numpy batch on the host: 1024 + 100 wide for
 IEMOCAP, 1024 + 300 for MELD (the models read the first 100 audio dims).
@@ -22,9 +25,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ser_tpu_torch.models.marn_newz import MARN1NewZ
 from ser_tpu_torch.models.marn_onlysp import MARN1OnlySP
-from ser_tpu_torch.models.marn_variants import (MARN1AZS, MARN1CF, MARN1NSPS,
-                                                MARN1SP, MARN1SPS)
+from ser_tpu_torch.models.marn_variants import (MARN1AZS, MARN1CF, MARN1LA, MARN1MF,
+                                                MARN1NSPS, MARN1SP, MARN1SPS)
 
 
 @dataclass(frozen=True)
@@ -57,6 +61,10 @@ _BUILDERS = {
     "MARN1_sps": MARN1SPS,
     "MARN1_nsps": MARN1NSPS,
     "MARN1_no_en": partial(MARN1NSPS, use_text_encoder=False),
+    "MARN1_mf": MARN1MF,
+    "MARN1_la": MARN1LA,
+    # the JAX registry builds newz with 6 outputs whatever --n_classes says
+    "MARN1_newz": lambda n_classes, generator: MARN1NewZ(6, generator=generator),
 }
 _REGISTRY = {
     name: ModelSpec(name, lambda n_classes, generator, cls=cls: cls(
@@ -64,8 +72,7 @@ _REGISTRY = {
     for name, cls in _BUILDERS.items()}
 
 # the JAX package's models still to port (ROADMAP A.10-A.12)
-QUEUED = ("MARN1_mf", "MARN1_la", "MARN1_newz", "DialogueRNN", "BiLSTM", "MARN",
-          "MARN_AT", "MARN_ATV")
+QUEUED = ("DialogueRNN", "BiLSTM", "MARN", "MARN_AT", "MARN_ATV")
 
 
 def get_model_spec(name: str) -> ModelSpec:

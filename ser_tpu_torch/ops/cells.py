@@ -27,6 +27,20 @@ def lsthm_gates(sums: torch.Tensor, c_prev: torch.Tensor):
     return c_t, torch.tanh(c_t) * o_t
 
 
+def lsthm_mf_gates(sums: torch.Tensor, z_gate: torch.Tensor, c_prev: torch.Tensor):
+    """MARN1_mf's LSTHM gates: ``z_gate``, the H-wide ``V z`` pre-activation,
+    adds a memory-fusion forget gate, ``c = f c + i c-hat + sigmoid(V z) c``
+    (gate order f, i, o, c-hat). Returns ``(c_t, h_t)``."""
+    H = c_prev.shape[-1]
+    f_t = torch.sigmoid(sums[..., :H])
+    i_t = torch.sigmoid(sums[..., H:2 * H])
+    o_t = torch.sigmoid(sums[..., 2 * H:3 * H])
+    ch_t = torch.tanh(sums[..., 3 * H:])
+    zf_t = torch.sigmoid(z_gate)
+    c_t = f_t * c_prev + i_t * ch_t + zf_t * c_prev
+    return c_t, torch.tanh(c_t) * o_t
+
+
 def torch_lstm_gates(sums: torch.Tensor, c_prev: torch.Tensor):
     """``nn.LSTMCell`` gate nonlinearity, order i, f, g, o. Returns
     ``(c_t, h_t)``."""
@@ -68,14 +82,16 @@ def gru_step(x_proj: torch.Tensor, h_prev: torch.Tensor,
 
 class LSTHM(nn.Module):
     """The four linears of a speaker-conditioned LSTHM1 cell
-    (``sums = W x + U h + V z + S s``); the cell applies them itself."""
+    (``sums = W x + U h + V z + S s``); the cell applies them itself.
+    ``v_out`` is V's width, 4H but for mf and la, whose V is ``[H, H]``
+    (mf's memory-fusion gate; la declares it and never uses it)."""
 
     def __init__(self, d_in: int, H: int, Hz: int, Hs: int, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, v_out: int | None = None):
         super().__init__()
         self.W = TorchLinear(d_in, 4 * H, generator=generator)
         self.U = TorchLinear(H, 4 * H, generator=generator)
-        self.V = TorchLinear(Hz, 4 * H, generator=generator)
+        self.V = TorchLinear(Hz, 4 * H if v_out is None else v_out, generator=generator)
         self.S = TorchLinear(Hs, 4 * H, generator=generator)
 
 

@@ -2,7 +2,9 @@
 ``ser_tpu/ops/encoder.py``). Batch-first ``[B, L, d_model]``. In train mode
 the reference's three dropouts (rate 0.1: the attention map, after ``fc``,
 in the FFN) draw from the generator passed to ``forward``; in eval they are
-the identity."""
+the identity. An optional self-attention mask ``[B or 1, Lq, Lk]`` (0 masks
+out) sets those logits to -1e9 before the softmax, as the JAX package does;
+MARN1_newz's causal encoder passes a lower-triangular one."""
 
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ from ser_tpu_torch.ops.layers import Dropout, TorchLayerNorm, TorchLinear
 
 class MultiHeadAttention(nn.Module):
     """Bias-free q/k/v/out projections, q scaled before the contraction,
-    residual and LayerNorm. No mask: MARN1_onlysp passes none."""
+    residual and LayerNorm. ``mask`` (``[B or 1, Lq, Lk]``, 0 masks out)
+    puts -1e9, not -inf, on the masked logits, so no row becomes NaN; with
+    none the op sequence is the unmasked one."""
 
     def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, *,
                  generator: torch.Generator, dropout: float = 0.1):
@@ -29,15 +33,17 @@ class MultiHeadAttention(nn.Module):
         self.attn_dropout = Dropout(dropout)
         self.out_dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
         B, L = x.shape[:2]
         n = self.n_head
         q = self.w_qs(x).reshape(B, L, n, self.d_k)
         k = self.w_ks(x).reshape(B, L, n, self.d_k)
         v = self.w_vs(x).reshape(B, L, n, self.d_v)
-        attn = torch.softmax(
-            torch.einsum("bqnd,bknd->bnqk", q / self.d_k ** 0.5, k), dim=-1)
+        logits = torch.einsum("bqnd,bknd->bnqk", q / self.d_k ** 0.5, k)
+        if mask is not None:
+            logits = logits.masked_fill(mask[:, None] == 0, -1e9)
+        attn = torch.softmax(logits, dim=-1)
         attn = self.attn_dropout(attn, generator)
         out = torch.einsum("bnqk,bknd->bqnd", attn, v).reshape(B, L, -1)
         out = self.out_dropout(self.fc(out), generator)
@@ -64,7 +70,8 @@ class PositionwiseFeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """MHA then FFN; MARN1_onlysp builds ``EncoderLayer(100, 40, 8, 40, 40)``."""
+    """MHA then FFN; MARN1_onlysp builds ``EncoderLayer(100, 40, 8, 40, 40)``,
+    mf, la and newz ``EncoderLayer(100, 50, 8, 40, 40)``."""
 
     def __init__(self, d_model: int, d_inner: int, n_head: int, d_k: int,
                  d_v: int, *, generator: torch.Generator):
@@ -74,6 +81,6 @@ class EncoderLayer(nn.Module):
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner,
                                                generator=generator)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.pos_ffn(self.slf_attn(x, generator), generator)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                slf_attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+        return self.pos_ffn(self.slf_attn(x, generator, slf_attn_mask), generator)

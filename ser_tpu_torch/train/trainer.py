@@ -45,6 +45,7 @@ class ModelTrainer:
         self.device = self.predictor.device
         self.model = self.predictor.model
         self.loss_kind = loss
+        self.n_classes = n_classes
         self.res_csv_path = res_csv_path
         # every dropout mask of a train step is drawn from this generator
         self.generator = torch.Generator(self.device).manual_seed(int(seed))
@@ -67,7 +68,11 @@ class ModelTrainer:
         labels = torch.as_tensor(batch["label"], device=self.device).reshape(-1)
         self.optimizer.zero_grad(set_to_none=True)
         logp = self.model(x, qmask, umask, generator=self.generator)[0]
-        loss = masked_loss(logp, labels, umask, kind=self.loss_kind)
+        # MARN1_newz has 6 logits whatever n_classes says; only where the
+        # widths differ does a label past the logits add 0, as in the JAX
+        # package (ROADMAP §C), and elsewhere it raises
+        loss = masked_loss(logp, labels, umask, kind=self.loss_kind,
+                           outside_adds_zero=logp.shape[-1] != self.n_classes)
         loss.backward()
         set_lr(self.optimizer, lr)
         self.optimizer.step()

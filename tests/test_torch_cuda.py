@@ -11,7 +11,10 @@ for z, dx1, dx2 and <= 1e-5·max|plain| + 1e-4·|plain| for dwq, dwk, which sum
 B·128 terms (128-term sums in another order, f32); a train step card against
 CPU with dropout off: the loss at rtol 1e-5, every gradient within 1e-3 of
 its tensor's largest plus 1e-6 of the step's largest (``tests/
-test_torch_train_step.py``'s contract against the JAX package).
+test_torch_train_step.py``'s contract against the JAX package). mf, la and
+newz, which run no kernel of the port: a request and a train step card
+against CPU with every kernel counter unmoved, and ``NewZStream`` on the card
+against its causal batch forward and the CPU stream (rtol 1e-4, atol 1e-5).
 """
 
 import numpy as np
@@ -508,3 +511,75 @@ def test_variant_train_step_card_matches_cpu(cuda, name):
             tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
             assert (q.grad.cpu() - p.grad).abs().max().item() <= tol, pname
         assert (q.detach().cpu() - p.detach()).abs().max().item() <= 2.05e-3, pname
+
+
+REST = ("MARN1_mf", "MARN1_la", "MARN1_newz")
+
+
+@pytest.mark.parametrize("name,P", [(n, 2) for n in REST] + [("MARN1_mf", 9), ("MARN1_newz", 9)])
+def test_rest_request_launches_no_port_kernel_and_matches_cpu(cuda, name, P):
+    """mf, la and newz run no kernel of the port (no rank-1 attention, no
+    recurrence kernel, and the audio slot they never read); a request on the
+    card agrees with the CPU at rtol 1e-3, atol 1e-4."""
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.serving import Predictor
+
+    meld = dict(n_classes=7, d_audio=300, d_visual=600, n_parties=9) if P == 9 else {}
+    batch = synthetic_batch(L=20, B=6, seed=3, min_len=5, **meld)
+    x, qmask, umask = get_model_spec(name).make_inputs(batch)
+    gpu = Predictor(name, seed=0, n_classes=7 if P == 9 else 6)
+    cpu = Predictor(name, state_dict={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+                    device="cpu", n_classes=7 if P == 9 else 6)
+    before = dict(LAUNCHES)
+    out = gpu.predict(x, qmask, umask)[0]
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == before
+    torch.testing.assert_close(out.cpu(), cpu.predict(x, qmask, umask)[0],
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", REST)
+def test_rest_train_step_card_matches_cpu(cuda, name):
+    batch = synthetic_batch(L=16, B=4, seed=2, min_len=6)
+    trainers = {d: ModelTrainer(device=d, model=name, seed=3) for d in ("cpu", "cuda")}
+    _randomize_constants([t.model for t in trainers.values()])
+    before = dict(LAUNCHES)
+    losses = {}
+    for d, t in trainers.items():
+        _no_dropout(t.model)
+        losses[d] = t._train_step_impl(batch, 1e-3).item()
+    assert dict(LAUNCHES) == before
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    cpu = dict(trainers["cpu"].model.named_parameters())
+    card = dict(trainers["cuda"].model.named_parameters())
+    top = max(p.grad.abs().max().item() for p in cpu.values() if p.grad is not None)
+    for pname, p in cpu.items():
+        q = card[pname]
+        assert (p.grad is None) == (q.grad is None), pname
+        if p.grad is not None:
+            tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
+            assert (q.grad.cpu() - p.grad).abs().max().item() <= tol, pname
+        assert (q.detach().cpu() - p.detach()).abs().max().item() <= 2.05e-3, pname
+
+
+def test_newz_stream_on_card_matches_causal_forward_and_cpu(cuda):
+    """``NewZStream`` on the card against the causal batch forward on the
+    card and the stream on the CPU, at rtol 1e-4, atol 1e-5."""
+    from ser_tpu_torch.models.marn_newz import MARN1NewZ
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.streaming import NewZStream
+
+    rng = np.random.default_rng(4)
+    T = 30
+    x = rng.standard_normal((T, 1124)).astype(np.float32)
+    qmask = np.eye(2, dtype=np.float32)[rng.integers(0, 2, size=T)]
+    model = MARN1NewZ(generator=generator(0), causal_encoder=True).eval()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        stream = NewZStream(model.to(dev), max_len=32)
+        outs[dev] = np.stack([stream.append(x[t], qmask[t]) for t in range(T)])
+    with torch.inference_mode():
+        batch = model.to("cuda")(torch.from_numpy(x[:, None]).cuda(),
+                                 torch.from_numpy(qmask[:, None]).cuda())[0].cpu().numpy()
+    np.testing.assert_allclose(outs["cuda"], batch, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=1e-4, atol=1e-5)

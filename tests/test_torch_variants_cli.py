@@ -156,7 +156,7 @@ def test_registry_resolves_the_six_variants():
 
 @pytest.mark.parametrize("cli", ["predict", "train"])
 def test_clis_refuse_a_queued_model_naming_every_queued_one(cli, tmp_path):
-    argv = ["--model", "MARN1_mf", "--feature_path", str(tmp_path), "--device", "cpu"]
+    argv = ["--model", "DialogueRNN", "--feature_path", str(tmp_path), "--device", "cpu"]
     with pytest.raises(KeyError) as err:
         if cli == "predict":
             tpredict.main(argv + ["--initial_model", str(tmp_path / "none.npz")])
