@@ -130,7 +130,25 @@ Phases, each fatal on failure:
     utterance (median, p90), kernel launches an append, the drift from the
     bidirectional forward; (e) ``python -m ser_tpu_torch.serve stream
     --device cuda``, and the newz train CLI for 2 epochs with the predict
-    CLI on its checkpoint (all three in this process).
+    CLI on its checkpoint (all three in this process);
+11. DialogueRNN, BiLSTM, MARN, MARN_AT and MARN_ATV, seeded full-width
+    weights, no kernel of the port on a feature request or a train step
+    (their loops are eager ops; BiLSTM and MARN run cuDNN's LSTM): (a) an
+    IEMOCAP feature request at [82, 31] card against CPU on the valid rows
+    (rtol 1e-3, atol 1e-4; on a miss, both against f64 on the CPU), every
+    kernel counter 0, ms a request (median of 10), launches and idle
+    (profile of 3); (b) train steps at [110, 80]: ms a step (median of 3),
+    peak memory, launches and idle (profile of one step), for DialogueRNN,
+    MARN_AT and MARN_ATV the loop's share; one step card against CPU at
+    [32, 16] (dropout off, constants made random): loss, gradients, dead
+    set, Adam update; (c) BiLSTM, MARN_AT and MARN_ATV on the MELD request
+    [32, 80], P = 9, and ``BiModel`` alone at P = 9 on a 712-wide input,
+    card against CPU; (d) ``python -m ser_tpu_torch.predict --model
+    DialogueRNN --synthetic --audio_frontend mfcc`` on the card in this
+    process (the MFCC kernel once a batch, nothing else) against ``--device
+    cpu`` on the same pickles; (e) the train CLI for 2 epochs and the
+    predict CLI on its checkpoint for DialogueRNN and MARN_ATV (time-major
+    rows), which must report ``score.txt``'s Acc and F1.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -223,6 +241,11 @@ REST_DEAD = {"MARN1_mf": 10, "MARN1_la": 78, "MARN1_newz": 26}
 # the streamed dialogue: IEMOCAP's longest (110 utterances, the reference
 # train shape's L) in a history of serve.py stream's default capacity
 STREAM_L, STREAM_MAX_LEN = 110, 128
+# phase 11's models, which run no kernel of the port on a feature request or
+# a train step, and their dead sets (tests/test_torch_rest_models_train.py
+# holds the names against the JAX package's all-zero gradients)
+BASELINES = ("DialogueRNN", "BiLSTM", "MARN", "MARN_AT", "MARN_ATV")
+BASELINE_DEAD = {"DialogueRNN": 0, "BiLSTM": 4, "MARN": 50, "MARN_AT": 4, "MARN_ATV": 6}
 
 
 def check(cond, msg):
@@ -611,6 +634,47 @@ def grad_check(torch, cpu_model, card_model):
             {n for n, p in card.items() if p.grad is None})
 
 
+class PinnedRelu:
+    """A stand-in for ``torch.relu`` for a card-against-CPU train check: it
+    records each call's decisions (x > 0) in order, then, after
+    ``replay()``, applies the recorded ones as ``x * mask``, whose forward
+    differs from relu(x) only where x lies within rounding of 0 and whose
+    backward is relu's under that mask. An f32 forward on the card and one
+    on the CPU can put a pre-activation within 1e-7 of 0 on either side of
+    the kink, and the gradients of the two branches then differ by that
+    element's whole upstream gradient, far outside the train contract
+    (phase 11, PERF.md §6). ``flips`` counts the card's own decisions that
+    the recorded ones replaced, of ``total``; ``crossed`` lists each such
+    pre-activation as (CPU, card)."""
+
+    def __init__(self, torch):
+        self.torch, self.real = torch, torch.relu
+        self.inputs, self.i, self.flips, self.total, self.crossed = [], None, 0, 0, []
+
+    def __enter__(self):
+        self.torch.relu = self
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.relu = self.real
+
+    def replay(self):
+        self.i = 0
+
+    def __call__(self, x):
+        if self.i is None:
+            self.inputs.append(x.detach().clone())
+            return self.real(x)
+        recorded = self.inputs[self.i].to(x.device)
+        self.i += 1
+        mask = recorded > 0
+        flip = (x.detach() > 0) != mask
+        self.flips += int(flip.sum())
+        self.total += mask.numel()
+        self.crossed += list(zip(recorded[flip].tolist(), x.detach()[flip].tolist()))
+        return x * mask
+
+
 def score_lines(path):
     return [line for line in Path(path).read_text().splitlines() if " —— epoch " in line]
 
@@ -760,7 +824,8 @@ def rank1_timings(torch, card, dev, rank1_kernel, rank1_seed):
 def loop_ms(torch, module, fn_name, trainer, batch):
     """``(forward ms, backward ms)`` of a model's recurrence loop inside a
     train step at ``batch``: ``module.fn_name`` (``marn_variants.
-    fused_directions``, ``marn_newz.recurrence``) called again on the
+    fused_directions``, ``marn_newz.recurrence``, ``dialogue_rnn.
+    recurrence``, ``hybrid_rnn.recurrence``) called again on the
     arguments one train forward gave it, their tensors made leaves so the
     backward stops there, timed with CUDA events (median of 3); the backward
     of a random output gradient through those leaves and the parameters the
@@ -782,6 +847,7 @@ def loop_ms(torch, module, fn_name, trainer, batch):
     run = lambda: real(*args)  # noqa: E731
     fwd_ms = cuda_ms(torch, run, warmup=1, iters=3)
     ys = run()
+    ys = ys[0] if isinstance(ys, tuple) else ys  # DialogueRNN's emotions
     gy = torch.randn_like(ys)
     bwd_ms = cuda_ms(torch, lambda: ys.backward(gy, retain_graph=True), warmup=1, iters=3)
     trainer.optimizer.zero_grad(set_to_none=True)
@@ -991,18 +1057,52 @@ def no_port_kernel(torch, what):
 def f64_drift(torch, name, state, inputs, n_classes, card_out, cpu_out):
     """After a failed card-against-CPU request: the same request in f64 on
     the CPU, and how far the card's and the CPU's f32 outputs lie from it."""
-    from ser_tpu_torch.models.registry import build_model
+    from ser_tpu_torch.models.registry import build_model, get_model_spec
     from ser_tpu_torch.ops.init import generator
 
     model = build_model(name, generator(0), n_classes)
     model.load_state_dict(state)
     model.double().eval()
     with torch.inference_mode():
-        ref = model(*(torch.as_tensor(a, dtype=torch.float64) for a in inputs))[0]
+        ref = get_model_spec(name).extract_logp(
+            model(*(torch.as_tensor(a, dtype=torch.float64) for a in inputs)))
     print(f"[rest] {name} against f64 on the CPU: max|card - f64| "
           f"{(card_out.double() - ref).abs().max().item():.3e}, max|CPU f32 - f64| "
           f"{(cpu_out.double() - ref).abs().max().item():.3e}, max|f64| "
           f"{ref.abs().max().item():.3e}")
+
+
+def step_f64_drift(torch, name, state, batch, trainers):
+    """After a missed card-against-CPU train step: the same step's
+    gradients in f64 on the CPU from ``state`` (dropout off); for the tensor
+    where the card and the CPU part most against the tolerance, how far each
+    f32 gradient lies from f64."""
+    from ser_tpu_torch.models.registry import build_model, get_model_spec
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.train.losses import masked_loss
+
+    spec = get_model_spec(name)
+    model = build_model(name, generator(0))
+    model.load_state_dict(state)
+    model.double().train()
+    no_dropout(model, Dropout)
+    x, qmask, umask = (torch.as_tensor(a, dtype=torch.float64) for a in spec.make_inputs(batch))
+    logp = spec.extract_logp(model(x, qmask, umask, generator=torch.Generator()))
+    masked_loss(logp, spec.rows(torch.as_tensor(batch["label"])), spec.rows(umask)).backward()
+    g64 = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    cpu = {n: p.grad.double() for n, p in trainers["cpu"].model.named_parameters()
+           if p.grad is not None}
+    card = {n: p.grad.cpu().double() for n, p in trainers["cuda"].model.named_parameters()
+            if p.grad is not None}
+    top = max(g.abs().max().item() for g in cpu.values())
+    frac = {n: (card[n] - g).abs().max().item()
+            / (GRAD_RTOL * g.abs().max().item() + GRAD_FLOOR * top) for n, g in cpu.items()}
+    n = max(frac, key=frac.get)
+    print(f"[baseline] {name} against an f64 step on the CPU, at {n} ({frac[n]:.3f} of the "
+          f"tolerance): max|CPU f32 - f64| {(cpu[n] - g64[n]).abs().max().item():.3e}, "
+          f"max|card - f64| {(card[n] - g64[n]).abs().max().item():.3e}, max|f64| "
+          f"{g64[n].abs().max().item():.3e}")
 
 
 def rest_phase(torch, card, eval_batch, meld_test, names):
@@ -1185,6 +1285,227 @@ def rest_phase(torch, card, eval_batch, meld_test, names):
     check(params_csv[0] == "w" and len(params_csv) == 3,
           f"train CLI MARN1_newz: parameters.csv {params_csv}")
     check(len(w) == 2, "MARN1_newz's raw w in the JSON")
+
+
+def baseline_phase(torch, card, eval_batch, meld_test, names):
+    """Phase 11 (the module docstring). Returns the MFCC kernel's launches
+    on DialogueRNN's wav path."""
+    import copy
+
+    import numpy as np
+
+    from ser_tpu_torch import predict as predict_cli
+    from ser_tpu_torch.compat.from_jax import to_jax_params
+    from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
+    from ser_tpu_torch.models import dialogue_rnn, hybrid_rnn
+    from ser_tpu_torch.models.dialogue_rnn import BiModel
+    from ser_tpu_torch.models.registry import build_model, get_model_spec
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.mfcc import NAME as MFCC
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.serving import Predictor
+    from ser_tpu_torch.train.metrics import weighted_accuracy
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    n_utts = int(eval_batch["umask"].sum())
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    meld_batch = next(iter(meld_test))
+    loops = {"DialogueRNN": dialogue_rnn, "MARN_AT": hybrid_rnn, "MARN_ATV": hybrid_rnn}
+
+    def card_against_cpu(name, label, inputs, n_classes):
+        """One request on the card against the CPU on the same seeded
+        weights, the valid rows at rtol 1e-3, atol 1e-4, no port kernel
+        launched; returns the card's ``Predictor``."""
+        spec = get_model_spec(name)
+        gpu = Predictor(name, seed=0, device="cuda", n_classes=n_classes)
+        state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+        cpu = Predictor(name, state_dict=state, device="cpu", n_classes=n_classes)
+        reset_launches()
+        out = gpu.predict(*inputs)[0]
+        no_port_kernel(torch, f"{name} {label}")
+        out, ref = out.cpu(), cpu.predict(*inputs)[0]
+        check(torch.isfinite(out).all().item() and out.shape == ref.shape,
+              f"{name} {label}: non-finite or misshapen outputs")
+        valid = torch.as_tensor(spec.rows(inputs[2])) > 0
+        out, ref = out[valid], ref[valid]
+        ok = torch.allclose(out, ref, rtol=1e-3, atol=1e-4)
+        print(f"[baseline] {name} {label} {list(inputs[1].shape)}: no port kernel launched, "
+              f"max|gpu-cpu| {(out - ref).abs().max().item():.3e} over {len(out)} valid rows "
+              f"({spec.logp_layout} order), max|out| {ref.abs().max().item():.3e}")
+        if not ok:
+            f64_drift(torch, name, state, inputs, n_classes, out, ref)
+        check(ok, f"{name} {label}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        return gpu
+
+    for name in names:
+        # (a) a feature request at the IEMOCAP eval shape, card against CPU,
+        #     then its time, launches and idle share
+        inputs = get_model_spec(name).make_inputs(eval_batch)
+        gpu = card_against_cpu(name, "request", inputs, 6)
+        request = lambda: gpu.predict(*inputs)  # noqa: E731
+        req_ms = cuda_ms(torch, request, warmup=2, iters=10)
+        wall, busy, events = device_profile(torch, request, 3)
+        n_kernels, busy_ms, _ = kernel_split(events, 3)
+        print(f"[time] {card} | {name} request {list(inputs[1].shape[:2])}: {req_ms:.4f} ms "
+              f"(median of 10), {n_utts / req_ms * 1e3:.1f} utterances/s; profile of 3: "
+              f"{n_kernels:.0f} kernel launches a request, device busy {busy_ms:.4f} ms a "
+              f"request, idle {100 * (1 - busy / wall):.1f}% of {wall / 3:.3f} ms")
+        del gpu, request
+        # (c) BiLSTM, MARN_AT and MARN_ATV on the MELD request, P = 9
+        if name in ("BiLSTM", "MARN_AT", "MARN_ATV"):
+            card_against_cpu(name, "MELD request", get_model_spec(name).make_inputs(meld_batch),
+                             7)
+
+        # (b) train steps at [110, 80]: no kernel of the port, time, peak
+        #     memory, profile, the recurrence loop's share
+        trainer = ModelTrainer(model=name, seed=0, lr=TRAIN_LR)
+        step = lambda: trainer._train_step_impl(train_batch, TRAIN_LR)  # noqa: E731
+        reset_launches()
+        step()  # also the warm-up
+        no_port_kernel(torch, f"{name} train step")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(torch, step, warmup=0, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, events = device_profile(torch, step, 1)
+        n_kernels, busy_ms, _ = kernel_split(events, 1)
+        line = (f"[time] {card} | {name} train step [{TRAIN_L}, {TRAIN_B}]: {step_ms:.2f} ms "
+                f"(median of 3), peak {peak:.4f} GiB; profile of one step: {n_kernels:.0f} "
+                f"kernel launches, wall {wall:.2f} ms, busy {busy_ms:.3f} ms (idle "
+                f"{100 * (1 - busy / wall):.1f}%)")
+        if name in loops:
+            fwd_ms, bwd_ms = loop_ms(torch, loops[name], "recurrence", trainer, train_batch)
+            step_again_ms = cuda_ms(torch, step, warmup=0, iters=3)
+            share = 200 * (fwd_ms + bwd_ms) / (step_ms + step_again_ms)
+            line += (f"; then the loop forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, "
+                     f"then the step {step_again_ms:.2f} ms: the loop {share:.1f}% of a step")
+        print(line)
+        del trainer, step
+
+        # one step card against CPU, dropout off, constants made random:
+        # first as it is (reported; on a miss both sides against an f64
+        # step), then with the card taking the CPU step's ReLU decisions
+        # (PinnedRelu; checked)
+        L_c, B_c = VARIANT_CHECK_SHAPE
+        check_batch = synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2)
+        for pinned in (False, True):
+            trainers = {d: ModelTrainer(device=d, model=name, seed=0, lr=TRAIN_LR)
+                        for d in ("cpu", "cuda")}
+            randomize_constants(torch, [t.model for t in trainers.values()], seed=1)
+            start = copy.deepcopy(trainers["cpu"].model.state_dict())
+            loss = {}
+            reset_launches()
+            with PinnedRelu(torch) as relu:
+                for d, t in trainers.items():  # the CPU first, then the card
+                    no_dropout(t.model, Dropout)
+                    loss[d] = t._train_step_impl(check_batch, TRAIN_LR).item()
+                    if pinned:
+                        relu.replay()
+            no_port_kernel(torch, f"{name} check step")
+            worst, dead_cpu, dead_card = grad_check(torch, trainers["cpu"].model,
+                                                    trainers["cuda"].model)
+            if not pinned:
+                print(f"[baseline] {name} one step [{L_c}, {B_c}] card vs CPU, each its own "
+                      f"ReLU decisions: gradients {worst:.3f} of the tolerance")
+                if worst > 1.0:
+                    step_f64_drift(torch, name, start, check_batch, trainers)
+                continue
+            moved = max((p.detach().cpu() - q.detach()).abs().max().item() for p, q in zip(
+                trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters()))
+            loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+            print(f"[baseline] {name} one step [{L_c}, {B_c}] card vs CPU, the CPU's ReLU "
+                  f"decisions: |loss| rel {loss_rel:.3e}, gradients {worst:.3f} of the "
+                  f"tolerance, {len(dead_card)} parameters with no gradient, max |param card "
+                  f"- CPU| after Adam {moved / TRAIN_LR:.3f} lr; {relu.flips} of the card's "
+                  f"{relu.total} ReLU decisions replaced, pre-activations (CPU, card) "
+                  f"{relu.crossed[:4]}")
+            check(relu.flips <= 1e-5 * relu.total, f"{name}: the card's forward crossed "
+                  f"{relu.flips} ReLU kinks, more than rounding explains")
+            check(loss_rel <= TRAIN_LOSS_RTOL, f"{name} step loss: card and CPU disagree")
+            check(worst <= 1.0, f"{name} step gradients: card and CPU disagree")
+            check(dead_cpu == dead_card and len(dead_card) == BASELINE_DEAD[name],
+                  f"{name} dead parameters: CPU {len(dead_cpu)}, card {len(dead_card)}, "
+                  f"want {BASELINE_DEAD[name]}")
+            check(moved <= 2.05 * TRAIN_LR, f"{name} Adam updates: card and CPU differ")
+        del trainers
+
+    # (c) BiModel alone at P = 9 on a 712-wide input at the MELD request's
+    #     qmask and umask, as tests/test_p9_parity.py builds it (7 classes)
+    qmask9, umask9 = meld_batch["qmask"], meld_batch["umask"]
+    L9, B9 = qmask9.shape[:2]
+    x9 = (np.random.default_rng(9).standard_normal((L9, B9, 712)).astype(np.float32)
+          * umask9.T[:, :, None])
+    models = {"cpu": BiModel(n_classes=7, generator=generator(0)).eval()}
+    models["cuda"] = copy.deepcopy(models["cpu"]).cuda()
+    reset_launches()
+    with torch.inference_mode():
+        outs = {d: m(*(torch.as_tensor(a, device=next(m.parameters()).device)
+                       for a in (x9, qmask9, umask9)))[0].cpu() for d, m in models.items()}
+    no_port_kernel(torch, "BiModel at P = 9")
+    valid = torch.as_tensor(umask9.T) > 0
+    out, ref = outs["cuda"][valid], outs["cpu"][valid]
+    print(f"[baseline] BiModel P=9 [{L9}, {B9}, 712], 7 classes: max|gpu-cpu| "
+          f"{(out - ref).abs().max().item():.3e} over {len(out)} valid rows")
+    check(torch.isfinite(outs["cuda"]).all().item(), "BiModel at P = 9: non-finite outputs")
+    check(torch.allclose(out, ref, rtol=1e-3, atol=1e-4),
+          "BiModel at P = 9: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+    del models, outs
+
+    # (d) the wav path: the predict CLI with DialogueRNN and the MFCC front
+    #     end on the card in this process (the kernel's launches counted),
+    #     against --device cpu on the same pickles
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drnn_wav_") as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "dialogue_rnn_seed0.npz"
+        np.savez(ckpt, **to_jax_params(build_model("DialogueRNN", generator(0)).state_dict()))
+        feature_path = generate_iemocap_pickles(str(tmp / "pickles"), seed=PREDICT_SEED,
+                                                with_wav=True)
+        base = ["--model", "DialogueRNN", "--audio_frontend", "mfcc", "--initial_model",
+                str(ckpt)]
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run_quiet(predict_cli.main, base + ["--synthetic", "--res_csv",
+                                                  str(tmp / "cuda.csv")])
+        torch.cuda.synchronize()
+        wav_launches = {k: v for k, v in LAUNCHES.items() if v}
+        cuda_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_cpu = run_quiet(predict_cli.main, base + ["--feature_path", feature_path,
+                                                      "--device", "cpu", "--res_csv",
+                                                      str(tmp / "cpu.csv")])
+        cpu_s = time.perf_counter() - t0
+        rep = json.loads(out[out.index("{"):])
+        rep_cpu = json.loads(out_cpu[out_cpu.index("{"):])
+        preds, labels, masks = read_res_csv(tmp / "cuda.csv")
+        cpu_preds, cpu_labels, cpu_masks = read_res_csv(tmp / "cpu.csv")
+    n_batches = math.ceil(rep["n_examples"] / 80)  # the CLI's default --batch_size
+    valid = [i for i, m in enumerate(masks) if m > 0]
+    flips = sum(preds[i] != cpu_preds[i] for i in valid)
+    print(f"[cli] {card} | predict --model DialogueRNN --synthetic --audio_frontend mfcc, in "
+          f"process: card {cuda_s:.1f} s, launches {wav_launches}; CPU {cpu_s:.1f} s; "
+          f"predictions differ on {flips} of {len(valid)} valid utterances; card "
+          f"{json.dumps(rep)}; CPU {json.dumps(rep_cpu)}")
+    check(wav_launches == {MFCC: n_batches},
+          f"DialogueRNN's wav path launched {wav_launches}, want {MFCC} once a batch "
+          f"({n_batches})")
+    check("is not in the model" not in out + out_cpu, "predict CLI skipped checkpoint names")
+    check(labels == cpu_labels and masks == cpu_masks,
+          "the card and CPU runs read different pickles")
+    check(all(math.isfinite(rep[k]) for k in ("weighted_accuracy", "weighted_f1")),
+          "non-finite CLI metrics")
+    check(rep["weighted_accuracy"] == weighted_accuracy(labels, preds, masks),
+          "CLI accuracy does not match its res.csv")
+    check(flips <= 0.001 * len(valid), "card and CPU predictions differ on more than 0.1% "
+          "of the valid utterances")
+
+    # (e) the train CLI for 2 epochs, then the predict CLI on its checkpoint:
+    #     DialogueRNN, and MARN_ATV for the time-major rows
+    for name in ("DialogueRNN", "MARN_ATV"):
+        reset_launches()
+        _, _, rep = train_predict_cli(name)
+        no_port_kernel(torch, f"the {name} CLIs")
+        check(rep["fusion_weights"] == {}, f"{name} has no fusion weights")
+    return wav_launches[MFCC]
 
 
 def main() -> int:
@@ -2007,7 +2328,14 @@ def main() -> int:
     t0 = time.perf_counter()
     rest_phase(torch, card, eval_batch, meld_test, REST)
     print(f"[rest] phase 10 in {time.perf_counter() - t0:.1f} s")
+
+    # 11. DialogueRNN, BiLSTM, MARN, MARN_AT and MARN_ATV on the card
+    t0 = time.perf_counter()
+    drnn_wav_launches = baseline_phase(torch, card, eval_batch, meld_test, BASELINES)
+    print(f"[baseline] phase 11 in {time.perf_counter() - t0:.1f} s")
     meld_tmp.cleanup()
+    mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
+                     "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
                       **variant_launches}
 
@@ -2025,7 +2353,8 @@ def main() -> int:
         "name": MFCC, "route": "cuda",
         "source": "ser_tpu_torch/csrc/mfcc.cu",
         "replaces": "ser_tpu/ops/pallas/mfcc.py:152",
-        "launches": wav_launches[MFCC], "max_abs_err": mfcc_err,
+        "launches": sum(mfcc_launches.values()), "launches_by_path": mfcc_launches,
+        "max_abs_err": mfcc_err,
         "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound_ms,
         "bound_by": mfcc_bound_by, "library_ms": None}, {
         "name": RANK1, "route": "cuda",

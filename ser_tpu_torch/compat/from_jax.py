@@ -1,30 +1,36 @@
-"""The JAX package's flattened MARN1 parameters as a port state dict.
+"""The JAX package's flattened parameters as a port state dict.
 
 ``from_jax_params`` takes the flat names that the JAX package's
 ``train.checkpoint.flatten_params`` writes (``"marn_cell_f/lsthm_l_W_kernel"``,
 ``"encoder_l/slf_attn/w_qs/kernel"``, ...) and returns the reference-layout
 torch keys the port's modules use. Dense kernels ``[in, out]`` are
 transposed to ``[out, in]``; the per-step rank-1 attention vectors ``[D]``
-become ``[1, D]``. The mapping covers every model the port has
-(``MARN1_onlysp``, the variants sp, cf, azs, sps, nsps, no_en, mf and la,
-and ``MARN1_newz``), and for each its keys equal the JAX package's
+become ``[1, D]``. The mapping covers all 15 models of the registry, and for
+each its keys equal the JAX package's
 ``compat.torch_export.export_state_dict(params, NAME, prefix="")``. This is
 the port's own copy of that mapping. ``to_jax_params`` is its inverse, which
 writes a port state dict as the JAX package's checkpoint names.
 
-The names differ from the keys in four ways: a cell's own parameters are
+The names differ from the keys in these ways: a cell's own parameters are
 flat leaves (``lsthm_q_U_kernel`` is ``lsthm_q.U.weight``,
-``gru_s_ih_kernel`` is ``gru_s.weight_ih``), and so are newz's root-level
-ones (``lsthm_l_W_kernel``, ``S_kernel``, ``att_0_kernel`` for
-``att.0.weight``, ``g_attention_trans_0_kernel`` for
-``g_attention.trans.0.weight``); a ``Sequential``'s index is joined with an
+``gru_s_ih_kernel`` is ``gru_s.weight_ih``, DialogueRNN's
+``dialog_rnn_f/g_cell_ih_kernel`` is
+``dialog_rnn_f.dialogue_cell.g_cell.weight_ih`` and its
+``dialog_rnn_f/attention_transform_kernel`` is
+``dialog_rnn_f.dialogue_cell.attention.transform.weight``), an LSTM's are
+named after its weights (``lstm_l/weight_ih_l0_bias`` is
+``lstm_l.bias_ih_l0``), and so are the root-level Linears of newz and of
+the MARN family (``lsthm_l_W_kernel``, ``S_kernel``, ``att_0_kernel`` for
+``att.0.weight``, ``reduce_dim_nn_v_0_kernel``, ``g_attention_trans_0_kernel``
+for ``g_attention.trans.0.weight``) and DialogueRNN's
+``matchatt_transform_kernel``; a ``Sequential``'s index is joined with an
 underscore (``nn_out_0``, ``fc_0``, ``fc2_0``); and azs's cell encoders are
 ``marn_cell_f_encoder_l`` for ``marn_cell_f.encoder_l``, where mf's and
 la's are modules of the cell (``marn_cell_f/encoder_l``, with their
 sequence attentions ``marn_cell_f/crossatt_l2a/Wq``). One key can so have
-two names (nsps's ``fc.0`` is the module ``fc_0``, newz's the leaf
-``fc_0_kernel``), and ``to_jax_params`` reads which from the whole state
-dict (``jax_layout``).
+two names (nsps's ``fc.0`` is the module ``fc_0``, newz's and MARN's the
+leaf ``fc_0_kernel``), and ``to_jax_params`` reads which from the whole
+state dict (``jax_layout``).
 """
 
 from __future__ import annotations
@@ -34,19 +40,25 @@ import re
 import numpy as np
 import torch
 
-_LSTHM = re.compile(r"(lsthm_[laq])_([WUVS])_(kernel|bias)")
+_LSTHM = re.compile(r"(lsthm_[laqv])_([WUVS])_(kernel|bias)")
 _RNN = re.compile(r"(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s|lstm_la_l|lstm_la_a)_(ih|hh)_"
                   r"(kernel|bias)")
 _RANK1 = re.compile(r"(crossatt_l2a|crossatt_a2l)_(W[qkv])")
+# DialogueRNN's cell leaves under ``dialog_rnn_[fr]``, and an LSTM's
+_DRNN = re.compile(r"([gpel]_cell)_(ih|hh)_(kernel|bias)|attention_transform_(kernel|bias)")
+_LSTM = re.compile(r"weight_(ih|hh)_l0(_reverse)?_(kernel|bias)")
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _SCALARS = ("w", "v", "v1", "v2", "p")
 # a JAX module name that is two torch modules: a Sequential's index, azs's
 # encoders inside a cell
 _JOINED = re.compile(r"(nn_out|fc|fc2)_(\d+)|(marn_cell_[fb])_(encoder_[la])")
-# newz's root-level Linears, declared as flat leaves: ``S_kernel``,
-# ``att_cross_modal_0_bias``, ``g_attention_trans_3_kernel``
-_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention_trans)"
-                          r"(?:_(\d+))?_(kernel|bias)")
+# newz's, the MARN family's and DialogueRNN's root-level Linears, declared
+# as flat leaves: ``S_kernel``, ``att_cross_modal_0_bias``,
+# ``g_attention_trans_3_kernel``, ``reduce_dim_nn_v_0_kernel``,
+# ``matchatt_transform_bias``
+_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention_trans|"
+                          r"reduce_dim_nn_[lav]|matchatt_transform)(?:_(\d+))?_(kernel|bias)")
+_DOTTED = {"g_attention_trans": "g_attention.trans", "matchatt_transform": "matchatt.transform"}
 _SEQ_ATT_HEAD = re.compile(r"(marn_cell_[fb]/)?crossatt_\w+")
 
 
@@ -75,10 +87,18 @@ def _convert(name: str, value: np.ndarray):
             return f"{head}.{m[1]}.{m[2]}", value.reshape(1, -1)
         if not head and (m := _ROOT_LINEAR.fullmatch(leaf)):
             mod, idx, kind = m.groups()
-            mod = mod.replace("g_attention_trans", "g_attention.trans")
+            mod = _DOTTED.get(mod, mod)
             return f"{mod}.{idx + '.' if idx else ''}{_LEAF[kind]}", t(kind)
         if not head and leaf in _SCALARS:
             return leaf, value
+    elif head in ("dialog_rnn_f", "dialog_rnn_r") and (m := _DRNN.fullmatch(leaf)):
+        cell, side, kind, att_kind = m.groups()
+        if cell:
+            return f"{head}.dialogue_cell.{cell}.{_LEAF[kind]}_{side}", t(kind)
+        return f"{head}.dialogue_cell.attention.transform.{_LEAF[att_kind]}", t(att_kind)
+    elif head in ("lstm_l", "lstm_a") and (m := _LSTM.fullmatch(leaf)):
+        side, rev, kind = m.groups()
+        return f"{head}.{_LEAF[kind]}_{side}_l0{rev or ''}", t(kind)
     elif leaf in _LEAF:
         return f"{_module_path(head)}.{_LEAF[leaf]}", t(leaf)
     elif _SEQ_ATT_HEAD.fullmatch(head) and leaf in ("Wq", "Wk", "Wv"):
@@ -87,7 +107,7 @@ def _convert(name: str, value: np.ndarray):
 
 
 def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat JAX MARN1 parameters -> the port's state dict."""
+    """Flat JAX parameters of a registry model -> the port's state dict."""
     out = {}
     for name, value in flat.items():
         key, v = _convert(name, np.asarray(value, dtype=np.float32))
@@ -95,25 +115,30 @@ def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
-_KEY_LSTHM = re.compile(r"(?:(marn_cell_[fb])\.)?(lsthm_[laq])\.([WUVS])\.(weight|bias)")
+_KEY_LSTHM = re.compile(r"(?:(marn_cell_[fb])\.)?(lsthm_[laqv])\.([WUVS])\.(weight|bias)")
 _KEY_RNN = re.compile(r"(marn_cell_[fb])\.(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s|lstm_la_l|"
                       r"lstm_la_a)\.(weight|bias)_(ih|hh)")
 _KEY_RANK1 = re.compile(r"(marn_cell_[fb])\.(crossatt_l2a|crossatt_a2l)\.(W[qkv])")
 _KEY_SEQ_ATT = re.compile(r"(crossatt_\w+)\.(W[qkv])")
-_KEY_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention\.trans)"
-                              r"(?:\.(\d+))?\.(weight|bias)")
+_KEY_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention\.trans|"
+                              r"reduce_dim_nn_[lav]|matchatt\.transform)(?:\.(\d+))?\."
+                              r"(weight|bias)")
+_KEY_DRNN = re.compile(r"(dialog_rnn_[fr])\.dialogue_cell\.(?:([gpel]_cell)\.(weight|bias)_"
+                       r"(ih|hh)|attention\.transform\.(weight|bias))")
+_KEY_LSTM = re.compile(r"(lstm_[la])\.(weight|bias)_(ih|hh)_l0(_reverse)?")
 _KEY_JOINED = re.compile(  # whole dotted segments only
     r"(?<![^.])(?:(nn_out|fc|fc2)\.(\d+)|(marn_cell_[fb])\.(encoder_[la]))(?![^.])")
 _KEY_SEQ_JOINED = re.compile(r"(?<![^.])(nn_out|fc|fc2)\.(\d+)(?![^.])")
 
 
 def jax_layout(state_dict) -> str:
-    """How the JAX package names a model's parameters: ``"newz"`` (its
-    root-level Linears are flat leaves), ``"cells"`` (mf and la: the cells
-    hold their encoders and sequence attentions, whose W is a matrix, as
-    modules) or ``"flat"`` (every other model)."""
-    if "S.weight" in state_dict:
-        return "newz"
+    """How the JAX package names a model's parameters: ``"leaves"`` (newz,
+    the MARN family and DialogueRNN: their root-level Linears are flat
+    leaves), ``"cells"`` (mf and la: the cells hold their encoders and
+    sequence attentions, whose W is a matrix, as modules) or ``"flat"``
+    (every other model)."""
+    if any(k in state_dict for k in ("S.weight", "att.0.weight", "matchatt.transform.weight")):
+        return "leaves"
     wq = state_dict.get("marn_cell_f.crossatt_l2a.Wq")
     return "cells" if wq is not None and wq.shape[0] > 1 else "flat"
 
@@ -129,7 +154,16 @@ def _to_jax(key: str, v: np.ndarray, layout: str = "flat"):
     if m := _KEY_RNN.fullmatch(key):
         cell, rnn, leaf, side = m.groups()
         return f"{cell}/{rnn}_{side}_{kind[leaf]}", v.T if leaf == "weight" else v
-    if layout == "newz" and (m := _KEY_ROOT_LINEAR.fullmatch(key)):
+    if m := _KEY_DRNN.fullmatch(key):
+        head, cell, leaf, side, att_leaf = m.groups()
+        if cell:
+            return f"{head}/{cell}_{side}_{kind[leaf]}", v.T if leaf == "weight" else v
+        return f"{head}/attention_transform_{kind[att_leaf]}", v.T if att_leaf == "weight" else v
+    if m := _KEY_LSTM.fullmatch(key):
+        mod, leaf, side, rev = m.groups()
+        return (f"{mod}/weight_{side}_l0{rev or ''}_{kind[leaf]}",
+                v.T if leaf == "weight" else v)
+    if layout == "leaves" and (m := _KEY_ROOT_LINEAR.fullmatch(key)):
         mod, idx, leaf = m.groups()
         name = mod.replace(".", "_") + (f"_{idx}" if idx else "")
         return f"{name}_{kind[leaf]}", v.T if leaf == "weight" else v
@@ -152,7 +186,7 @@ def _to_jax(key: str, v: np.ndarray, layout: str = "flat"):
 
 def to_jax_params(state_dict) -> dict[str, np.ndarray]:
     """The port's state dict (a whole model's, so that ``jax_layout`` can
-    read its naming) -> flat JAX MARN1 parameters, in its order, as the JAX
+    read its naming) -> flat JAX parameters, in its order, as the JAX
     package's ``save_parameters`` names them."""
     layout = jax_layout(state_dict)
     out = {}

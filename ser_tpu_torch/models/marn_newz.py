@@ -32,7 +32,7 @@ from torch import nn
 
 from ser_tpu_torch.ops.cells import LSTHM, lsthm_gates
 from ser_tpu_torch.ops.encoder import EncoderLayer
-from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout
+from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout, train_generator
 from ser_tpu_torch.ops.masking import select_parties
 
 H = 128  # each cell's hidden width
@@ -156,10 +156,7 @@ class MARN1NewZ(nn.Module):
     def forward(self, x, qmask, umask=None, generator: torch.Generator | None = None):
         """In train mode every dropout draws from ``generator``, which must
         be given and lie on the model's device; in eval it is not used."""
-        if self.training and generator is None:
-            raise RuntimeError("MARN1NewZ in train mode needs a torch.Generator "
-                               "for its dropouts; call .eval() to serve")
-        g = generator if self.training else None
+        g = train_generator(self, generator)
         x_l, x_a = self.encode(x, g)
         consts = self.step_consts()
         xlp, xap = self.lsthm_l.W(x_l), self.lsthm_a.W(x_a)

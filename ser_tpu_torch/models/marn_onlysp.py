@@ -37,7 +37,7 @@ from ser_tpu_torch.ops.cells import LSTHM, RNNCellWeights, gru_step, lsthm_gates
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.lsthm import lsthm_onlysp_recurrence_bidir
 from ser_tpu_torch.ops.kernels.rank1 import bind as rank1_bind
-from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout
+from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout, train_generator
 from ser_tpu_torch.ops.masking import reverse_seq, scatter_parties, select_parties
 
 
@@ -180,10 +180,7 @@ class MARN1OnlySP(nn.Module):
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
         """In train mode every dropout draws from ``generator``, which must
         be given and lie on the model's device; in eval it is not used."""
-        if self.training and generator is None:
-            raise RuntimeError("MARN1OnlySP in train mode needs a torch.Generator "
-                             "for its dropouts; call .eval() to serve")
-        g = generator if self.training else None
+        g = train_generator(self, generator)
         seqs, consts, x_l, x_a = self.recurrence_inputs(x, qmask, umask, g)
         if self.training:
             ys = train_recurrence(seqs, consts, g, self.dropout_rate,

@@ -52,7 +52,7 @@ from ser_tpu_torch.ops.cells import (LSTHM, RNNCellWeights, gru_step, lsthm_gate
                                      lsthm_mf_gates, lstm_step)
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.rank1 import bind as rank1_bind
-from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout
+from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout, train_generator
 from ser_tpu_torch.ops.masking import reverse_seq, select_parties
 
 H = 128  # every cell's hidden width
@@ -454,11 +454,10 @@ def _head(d_in: int, n_classes: int, generator):
 
 
 class _Variant(nn.Module):
-    """What the six models share: the recurrence's rates, the eval seed of
-    the rank-1 attention, and the train-mode generator rule. Input x is
-    time-major ``[L, B, 1024 + d_audio]`` (1124 for IEMOCAP, 1324 for
-    MELD), qmask ``[L, B, P]``, umask ``[B, L]``; the first output is the
-    log-probabilities ``[B*L, n_classes]``."""
+    """What the models share: the recurrence's rates and the eval seed of
+    the rank-1 attention. Input x is time-major ``[L, B, 1024 + d_audio]``
+    (1124 for IEMOCAP, 1324 for MELD), qmask ``[L, B, P]``, umask ``[B,
+    L]``; the first output is the log-probabilities ``[B*L, n_classes]``."""
 
     dropout_rate = 0.5  # the cells' h states, where the reference has them
     attn_dropout = 0.2  # the per-step rank-1 attention
@@ -470,14 +469,6 @@ class _Variant(nn.Module):
         if self.rank1:
             self.register_buffer("rank1_seed", torch.zeros(1, dtype=torch.int32),
                                  persistent=False)
-
-    def _generator(self, generator):
-        """The generator every dropout draws from in train mode, which must
-        be given there and lie on the model's device; None in eval."""
-        if self.training and generator is None:
-            raise RuntimeError(f"{type(self).__name__} in train mode needs a "
-                               "torch.Generator for its dropouts; call .eval() to serve")
-        return generator if self.training else None
 
     def _recurrence(self, inputs_f, inputs_b, step, init, generator):
         return fused_directions(self.marn_cell_f, self.marn_cell_b, inputs_f, inputs_b,
@@ -522,7 +513,7 @@ class MARN1SP(_Variant):
         self.linear = TorchLinear(d_feat, 32, generator=g)  # unused
 
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
-        g = self._generator(generator)
+        g = train_generator(self, generator)
         enc = lambda e, xx: e(xx.transpose(0, 1), g).transpose(0, 1)  # noqa: E731
         x_l = enc(self.encoder_l, x[:, :, :D_M])
         x_a = enc(self.encoder_a, x[:, :, D_M:2 * D_M])
@@ -555,7 +546,7 @@ class MARN1CF(_Variant):
         self.linear = TorchLinear(d_feat, 32, generator=g)  # unused
 
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
-        g = self._generator(generator)
+        g = train_generator(self, generator)
         enc = lambda e, xx: e(xx.transpose(0, 1), g).transpose(0, 1)  # noqa: E731
         x_l = enc(self.encoder_l, x[:, :, :D_M])
         x_a = enc(self.encoder_a, x[:, :, D_M:2 * D_M])
@@ -583,7 +574,7 @@ class MARN1AZS(_Variant):
         self.linear = TorchLinear(d_feat, 32, generator=g)  # unused
 
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
-        g = self._generator(generator)
+        g = train_generator(self, generator)
         rev_x, rev_qmask = _reversed(umask, x, qmask)
         step = partial(_shared_lstm_step, speaker_term=True, emit_q=False)
         ys = self._recurrence((*self.marn_cell_f.encode(x, g), qmask),
@@ -620,7 +611,7 @@ class MARN1SPS(_Variant):
         self.nn_out = _head(D_M, n_classes, g)
 
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
-        g = self._generator(generator)
+        g = train_generator(self, generator)
         x_l = self.linear_in(x[:, :, :D_R].transpose(0, 1))  # [B, L, 100]
         x_a = x[:, :, D_R:D_R + D_M].transpose(0, 1)
         x_l = self.encoder_l(x_l + self.encoder_l(x_l, g), g).transpose(0, 1)
@@ -668,7 +659,7 @@ class MARN1NSPS(_Variant):
         self.nn_out = _head(d_feat, n_classes, g)
 
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
-        g = self._generator(generator)
+        g = train_generator(self, generator)
         x_l = self.linear_in(x[:, :, :D_R].transpose(0, 1))  # [B, L, 100]
         x_a = x[:, :, D_R:D_R + D_M].transpose(0, 1)
         xcat = torch.cat([x_l, x_a], 2).transpose(0, 1)  # [L, B, 200], before the encoders
@@ -713,7 +704,7 @@ class _NoAttnBidir(_Variant):
         self.linear = TorchLinear(4 * H, 32, generator=g)  # unused
 
     def forward(self, x, qmask, umask, generator: torch.Generator | None = None):
-        g = self._generator(generator)
+        g = train_generator(self, generator)
         x = x[:, :, :2 * D_M]  # all the cells read
         rev_x, rev_qmask = _reversed(umask, x, qmask)
         ys = self._recurrence((*self._inputs(self.marn_cell_f, x, g), qmask),

@@ -84,15 +84,17 @@ class LSTHM(nn.Module):
     """The four linears of a speaker-conditioned LSTHM1 cell
     (``sums = W x + U h + V z + S s``); the cell applies them itself.
     ``v_out`` is V's width, 4H but for mf and la, whose V is ``[H, H]``
-    (mf's memory-fusion gate; la declares it and never uses it)."""
+    (mf's memory-fusion gate; la declares it and never uses it). With ``Hs``
+    None the cell is the MARN family's 3-term LSTHM, with no S."""
 
-    def __init__(self, d_in: int, H: int, Hz: int, Hs: int, *,
+    def __init__(self, d_in: int, H: int, Hz: int, Hs: int | None, *,
                  generator: torch.Generator, v_out: int | None = None):
         super().__init__()
         self.W = TorchLinear(d_in, 4 * H, generator=generator)
         self.U = TorchLinear(H, 4 * H, generator=generator)
         self.V = TorchLinear(Hz, 4 * H if v_out is None else v_out, generator=generator)
-        self.S = TorchLinear(Hs, 4 * H, generator=generator)
+        if Hs is not None:
+            self.S = TorchLinear(Hs, 4 * H, generator=generator)
 
 
 class RNNCellWeights(nn.Module):

@@ -62,11 +62,22 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None
     return torch.where(mask, x / keep, 0.0)
 
 
+def train_generator(model: nn.Module, generator: torch.Generator | None
+                    ) -> torch.Generator | None:
+    """The generator every dropout of ``model`` draws from: in train mode
+    ``generator``, which must be given there and lie on the model's device;
+    None in eval."""
+    if model.training and generator is None:
+        raise RuntimeError(f"{type(model).__name__} in train mode needs a "
+                           "torch.Generator for its dropouts; call .eval() to serve")
+    return generator if model.training else None
+
+
 class Dropout(nn.Module):
     """``nn.Dropout(p)`` with an explicit generator: in train mode
     ``forward(x, generator)`` drops from ``generator``; in eval mode, or
-    given no generator, it is the identity. ``MARN1OnlySP.forward`` refuses
-    train mode without a generator, so a train step always drops."""
+    given no generator, it is the identity. The models refuse train mode
+    without a generator (``train_generator``), so a train step always drops."""
 
     def __init__(self, p: float):
         super().__init__()

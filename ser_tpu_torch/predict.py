@@ -33,7 +33,7 @@ import torch
 from ser_tpu_torch.data.loaders import get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
-from ser_tpu_torch.models.registry import QUEUED, get_model_spec
+from ser_tpu_torch.models.registry import get_model_spec
 from ser_tpu_torch.serving import Predictor
 from ser_tpu_torch.train.checkpoint import load_parameters
 from ser_tpu_torch.train.metrics import weighted_accuracy, weighted_f1
@@ -67,17 +67,15 @@ def _parser():
 
 
 def _check_servable(args):
-    """Raise on what the port cannot serve yet, naming the ROADMAP item."""
+    """Raise on what the port cannot serve: an unknown model (``KeyError``
+    listing the available ones) or a flag it has not yet, naming the
+    ROADMAP item."""
+    get_model_spec(args.model)
     if args.encoder_attention != "mha":
         raise NotImplementedError(
             f"--encoder_attention {args.encoder_attention}: the port has the "
             "reference MHA encoder only; the attention zoo is queued "
             "(ROADMAP A.16)")
-    try:
-        get_model_spec(args.model)
-    except KeyError as e:
-        raise KeyError(f"{e.args[0]}; queued (ROADMAP A.10-A.12): "
-                       + ", ".join(QUEUED)) from None
 
 
 def fusion_weights(model: torch.nn.Module) -> dict:
@@ -110,13 +108,16 @@ def write_res_csv(path, preds, labels, masks) -> None:
 
 def eval_network(predictor: Predictor, loader, res_csv=None):
     """Predict every batch of ``loader``; write ``res_csv`` and return
-    ``(weighted accuracy, weighted F1)`` over the unmasked utterances."""
+    ``(weighted accuracy, weighted F1)`` over the unmasked utterances. The
+    rows of ``res_csv`` are in the order of the model's outputs, as the
+    JAX package writes them (time-major for MARN_AT and MARN_ATV)."""
+    rows = predictor.spec.rows
     preds, labels, masks = [], [], []
     for batch in loader:
         # predictions stay on the device until the loop ends
-        preds.append(predictor.predict_batch(batch)[1].reshape(-1))
-        labels.append(np.asarray(batch["label"]).reshape(-1))
-        masks.append(np.asarray(batch["umask"]).reshape(-1))
+        preds.append(rows(predictor.predict_batch(batch)[1]))
+        labels.append(rows(np.asarray(batch["label"])))
+        masks.append(rows(np.asarray(batch["umask"])))
     if not preds:
         return 0.0, 0.0
     preds = torch.cat(preds).cpu().numpy()

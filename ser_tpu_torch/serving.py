@@ -45,17 +45,21 @@ class Predictor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _answer(self, x, qmask, umask):
-        logp = self.model(x, qmask, umask)[0]
-        labels = logp.argmax(-1).reshape(umask.shape)
+        logp = self.spec.extract_logp(self.model(x, qmask, umask))
+        labels = self.spec.grid(logp.argmax(-1), *umask.shape)
         self.n_requests += 1
         return logp, labels
 
     def predict(self, x, qmask, umask):
-        """One padded request: x ``[L, B, 1024 + d_audio]`` (1124 for
-        IEMOCAP, 1324 for MELD), qmask ``[L, B, P]`` (P = 2 or 9, a party
-        count the recurrence kernel was compiled for), umask ``[B, L]``.
-        Returns ``(logp [B*L, C], labels [B, L])`` on the predictor's
-        device."""
+        """One padded request: x ``[L, B, D]`` as the model's ``make_inputs``
+        gives it (1124 wide for IEMOCAP and 1324 for MELD, 712 for the
+        trimodal models on IEMOCAP), qmask ``[L, B, P]`` (for MARN1_onlysp
+        P = 2 or 9, a party count the recurrence kernel was compiled for),
+        umask ``[B, L]``. Returns ``(logp [B*L, C], labels [B, L])`` on the
+        predictor's device: logp's rows in the model's order
+        (``ModelSpec.logp_layout``; time-major for MARN_AT and MARN_ATV),
+        log-probabilities or, for the models that emit them,
+        probabilities."""
         with torch.inference_mode():
             return self._answer(*(self._tensor(a) for a in (x, qmask, umask)))
 
@@ -65,7 +69,8 @@ class Predictor:
         ``wav`` field, the waveforms (and ``wav_len``) are copied to the
         device and the front end computes ``acouf`` there; otherwise the
         batch's ``acouf`` is used. The text views are averaged on the host,
-        so one of them is copied, not four. The caller picks the grad mode."""
+        so one of them is copied, not four (with the visual features for the
+        trimodal models). The caller picks the grad mode."""
         textf = self._tensor(self.spec.text_features(batch))
         if self.frontend is not None and "wav" in batch:
             wav_len = batch.get("wav_len")

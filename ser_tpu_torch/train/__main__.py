@@ -36,7 +36,7 @@ import torch
 from ser_tpu_torch.data.loaders import PrefetchLoader, get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
-from ser_tpu_torch.models.registry import QUEUED, get_model_spec
+from ser_tpu_torch.models.registry import get_model_spec
 from ser_tpu_torch.train.trainer import ModelTrainer
 from ser_tpu_torch.utils.paths import init_args
 from ser_tpu_torch.utils.seeding import seed_everything
@@ -53,18 +53,15 @@ _QUEUED = {
 
 
 def check_supported(args) -> None:
-    """Raise on a flag the port cannot honour yet, naming its ROADMAP item."""
+    """Raise on an unknown model (``KeyError`` listing the available ones)
+    or a flag the port cannot honour yet, naming its ROADMAP item."""
+    get_model_spec(args.model)
     for flag, (is_set, what, item) in _QUEUED.items():
         value = getattr(args, flag)
         if is_set(value):
             raise NotImplementedError(
                 f"--{flag} {value}: the port has no {what} yet; queued "
                 f"(ROADMAP {item})")
-    try:
-        get_model_spec(args.model)
-    except KeyError as e:
-        raise KeyError(f"{e.args[0]}; queued (ROADMAP A.10-A.12): "
-                       + ", ".join(QUEUED)) from None
 
 
 def write_parameters_csv(path, columns: dict) -> None:

@@ -13,11 +13,13 @@
 
 The model lives on one device (``cuda`` unless the caller asks for the CPU).
 A train step is eager PyTorch: the forward with every dropout drawn from the
-trainer's generator on that device, the masked loss, backward, and the Adam
-update. On the card the per-step rank-1 attention runs as its CUDA kernel,
-forward and backward. Eval runs the model in eval mode through the same
-``Predictor`` and loop as ``python -m ser_tpu_torch.predict``, so on the card
-it launches the recurrence kernel once a batch.
+trainer's generator on that device, the masked loss (labels and mask in the
+order of the model's rows, ``ModelSpec.rows``), backward, and the Adam
+update. On the card the per-step rank-1 attention of MARN1_onlysp and the
+six variants runs as its CUDA kernel, forward and backward. Eval runs the
+model in eval mode through the same ``Predictor`` and loop as ``python -m
+ser_tpu_torch.predict``, so on the card MARN1_onlysp launches the recurrence
+kernel once a batch.
 """
 
 from __future__ import annotations
@@ -63,15 +65,17 @@ class ModelTrainer:
         after the step; a parameter the forward never touches has none, and
         Adam skips it."""
         self.model.train()
+        spec = self.predictor.spec
         with torch.no_grad():  # the front end's features take no gradient
             x, qmask, umask = self.predictor.batch_inputs(batch)
-        labels = torch.as_tensor(batch["label"], device=self.device).reshape(-1)
+        # labels and mask in the order of the model's rows (JAX _flat_targets)
+        labels = spec.rows(torch.as_tensor(batch["label"], device=self.device))
         self.optimizer.zero_grad(set_to_none=True)
-        logp = self.model(x, qmask, umask, generator=self.generator)[0]
-        # MARN1_newz has 6 logits whatever n_classes says; only where the
-        # widths differ does a label past the logits add 0, as in the JAX
-        # package (ROADMAP §C), and elsewhere it raises
-        loss = masked_loss(logp, labels, umask, kind=self.loss_kind,
+        logp = spec.extract_logp(self.model(x, qmask, umask, generator=self.generator))
+        # MARN1_newz and BiLSTM have 6 outputs whatever n_classes says; only
+        # where the widths differ does a label past the outputs add 0, as in
+        # the JAX package (ROADMAP §C), and elsewhere it raises
+        loss = masked_loss(logp, labels, spec.rows(umask), kind=self.loss_kind,
                            outside_adds_zero=logp.shape[-1] != self.n_classes)
         loss.backward()
         set_lr(self.optimizer, lr)

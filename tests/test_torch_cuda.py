@@ -15,6 +15,9 @@ test_torch_train_step.py``'s contract against the JAX package). mf, la and
 newz, which run no kernel of the port: a request and a train step card
 against CPU with every kernel counter unmoved, and ``NewZStream`` on the card
 against its causal batch forward and the CPU stream (rtol 1e-4, atol 1e-5).
+DialogueRNN, BiLSTM, MARN, MARN_AT and MARN_ATV the same way (a request's
+valid rows, at 2 and 9 parties), and DialogueRNN's wav request, which
+launches the MFCC kernel once.
 """
 
 import numpy as np
@@ -540,6 +543,13 @@ def test_rest_request_launches_no_port_kernel_and_matches_cpu(cuda, name, P):
 
 @pytest.mark.parametrize("name", REST)
 def test_rest_train_step_card_matches_cpu(cuda, name):
+    _step_card_matches_cpu_no_port_kernel(name)
+
+
+def _step_card_matches_cpu_no_port_kernel(name):
+    """One step of ``name`` at [16, 4], card against CPU (dropout off,
+    constants made random): no port kernel, the loss, the gradients, the
+    dead set and the update to the train contract."""
     batch = synthetic_batch(L=16, B=4, seed=2, min_len=6)
     trainers = {d: ModelTrainer(device=d, model=name, seed=3) for d in ("cpu", "cuda")}
     _randomize_constants([t.model for t in trainers.values()])
@@ -583,3 +593,60 @@ def test_newz_stream_on_card_matches_causal_forward_and_cpu(cuda):
                                  torch.from_numpy(qmask[:, None]).cuda())[0].cpu().numpy()
     np.testing.assert_allclose(outs["cuda"], batch, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=1e-4, atol=1e-5)
+
+
+BASELINES = ("DialogueRNN", "BiLSTM", "MARN", "MARN_AT", "MARN_ATV")
+
+
+@pytest.mark.parametrize("name,P", [(n, 2) for n in BASELINES]
+                         + [(n, 9) for n in ("BiLSTM", "MARN_AT", "MARN_ATV")])
+def test_baseline_request_launches_no_port_kernel_and_matches_cpu(cuda, name, P):
+    """DialogueRNN, BiLSTM (cuDNN's LSTM), MARN, MARN_AT and MARN_ATV run no
+    kernel of the port on a feature request; on the card it agrees with the
+    CPU on the valid rows at rtol 1e-3, atol 1e-4."""
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.serving import Predictor
+
+    meld = dict(n_classes=7, d_audio=300, d_visual=600, n_parties=9) if P == 9 else {}
+    batch = synthetic_batch(L=20, B=6, seed=3, min_len=5, **meld)
+    spec = get_model_spec(name)
+    x, qmask, umask = spec.make_inputs(batch)
+    gpu = Predictor(name, seed=0, n_classes=7 if P == 9 else 6)
+    cpu = Predictor(name, state_dict={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+                    device="cpu", n_classes=7 if P == 9 else 6)
+    before = dict(LAUNCHES)
+    out, labels = gpu.predict(x, qmask, umask)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == before and labels.shape == umask.shape
+    valid = torch.as_tensor(spec.rows(umask)) > 0
+    torch.testing.assert_close(out.cpu()[valid], cpu.predict(x, qmask, umask)[0][valid],
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_train_step_card_matches_cpu(cuda, name):
+    _step_card_matches_cpu_no_port_kernel(name)
+
+
+def test_dialogue_rnn_wav_request_launches_mfcc_once_and_matches_cpu(cuda, tmp_path):
+    """DialogueRNN reads the audio slot of its trimodal input: with the MFCC
+    front end a collated wav batch launches the MFCC kernel once, and the
+    answer agrees with the CPU's on the valid rows."""
+    from ser_tpu_torch.serving import Predictor
+
+    feature_path = generate_iemocap_pickles(str(tmp_path), n_train=8, n_test=6,
+                                            min_len=4, max_len=12, seed=1, with_wav=True)
+    _, _, test_loader = get_loaders(feature_path, batch_size=6, wav_path="auto")
+    batch = next(iter(test_loader))
+    gpu = Predictor("DialogueRNN", seed=0, audio_frontend="mfcc")
+    cpu = Predictor("DialogueRNN", state_dict={k: v.cpu() for k, v in
+                                               gpu.model.state_dict().items()},
+                    device="cpu", audio_frontend="mfcc")
+    before = dict(LAUNCHES)
+    out = gpu.predict_batch(batch)[0]
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v != before.get(k, 0)}
+    assert launched == {tmfcc_kernel.NAME: 1}
+    valid = torch.as_tensor(batch["umask"]).reshape(-1) > 0
+    torch.testing.assert_close(out.cpu()[valid], cpu.predict_batch(batch)[0][valid],
+                               rtol=1e-3, atol=1e-4)

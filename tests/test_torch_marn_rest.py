@@ -30,7 +30,7 @@ from ser_tpu.train.checkpoint import flatten_params
 from ser_tpu_torch.compat.from_jax import from_jax_params, jax_layout, to_jax_params
 from ser_tpu_torch.data.synthetic import synthetic_batch
 from ser_tpu_torch.models.marn_newz import MARN1NewZ
-from ser_tpu_torch.models.registry import QUEUED, build_model, get_model_spec
+from ser_tpu_torch.models.registry import available_models, build_model, get_model_spec
 from ser_tpu_torch.ops.cells import lsthm_mf_gates
 from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.init import generator
@@ -127,7 +127,7 @@ def test_state_dict_keys_equal_export_state_dict(jax_runs, name):
     model = build_model(name, generator(0))
     model.load_state_dict(ported, strict=True)
     assert sorted(model.state_dict()) == sorted(exported)  # no buffer, no dropout
-    assert jax_layout(ported) == {"MARN1_newz": "newz"}.get(name, "cells")
+    assert jax_layout(ported) == {"MARN1_newz": "leaves"}.get(name, "cells")
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -142,7 +142,7 @@ def test_to_jax_params_inverts_from_jax_params(jax_runs, name):
 
 def test_registry_takes_the_three_out_of_the_queue():
     for name in MODELS:
-        assert get_model_spec(name).name == name and name not in QUEUED
+        assert get_model_spec(name).name == name and name in available_models()
     # newz has 6 outputs whatever n_classes says, as the JAX registry builds it
     assert build_model("MARN1_newz", generator(0), n_classes=7).nn_out[3].weight.shape[0] == 6
     assert build_model("MARN1_mf", generator(0), n_classes=7).nn_out[3].weight.shape[0] == 7

@@ -112,8 +112,8 @@ def test_cli_refuses_what_the_port_cannot_serve(files):
     base = ["--initial_model", ckpt, "--feature_path", feat, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="A.16"):
         tpredict.main(base + ["--encoder_attention", "external"])
-    with pytest.raises(KeyError, match="MARN1_onlysp"):
-        tpredict.main(base + ["--model", "DialogueRNN"])
+    with pytest.raises(KeyError, match=r"unknown model 'MARN2'; available: .*'MARN1_onlysp'"):
+        tpredict.main(base + ["--model", "MARN2"])
 
 
 def test_load_parameters_is_tolerant(files, tmp_path):

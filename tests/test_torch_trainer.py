@@ -246,5 +246,8 @@ def test_cli_refuses_what_the_port_lacks(flag, item, tmp_path):
 
 
 def test_cli_names_the_zoo_item_for_another_model(tmp_path):
-    with pytest.raises(KeyError, match="A.10-A.12"):
-        train_cli.main(_cli_args(str(tmp_path), tmp_path / "exp", "--model", "BiLSTM"))
+    """Every model of the JAX registry is ported: an unknown name raises,
+    listing them, before any file is written."""
+    with pytest.raises(KeyError, match=r"unknown model 'MARN2'; available: .*'BiLSTM'"):
+        train_cli.main(_cli_args(str(tmp_path), tmp_path / "exp", "--model", "MARN2"))
+    assert not list(tmp_path.iterdir())

@@ -35,7 +35,7 @@ from ser_tpu.models.registry import get_model_spec as jget_model_spec
 from ser_tpu.train.checkpoint import flatten_params, save_parameters, unflatten_into
 from ser_tpu_torch import predict as tpredict
 from ser_tpu_torch.data import synthetic as tsynthetic
-from ser_tpu_torch.models.registry import QUEUED, get_model_spec
+from ser_tpu_torch.models.registry import available_models, get_model_spec
 from ser_tpu_torch.train import __main__ as train_cli
 
 VARIANTS = ("MARN1_sp", "MARN1_cf", "MARN1_azs", "MARN1_sps", "MARN1_nsps", "MARN1_no_en")
@@ -156,13 +156,16 @@ def test_registry_resolves_the_six_variants():
 
 @pytest.mark.parametrize("cli", ["predict", "train"])
 def test_clis_refuse_a_queued_model_naming_every_queued_one(cli, tmp_path):
-    argv = ["--model", "DialogueRNN", "--feature_path", str(tmp_path), "--device", "cpu"]
+    """No model is queued any more: an unknown one is refused, naming all
+    15 that both CLIs take, before any file is written."""
+    argv = ["--model", "MARN2", "--feature_path", str(tmp_path), "--device", "cpu"]
     with pytest.raises(KeyError) as err:
         if cli == "predict":
             tpredict.main(argv + ["--initial_model", str(tmp_path / "none.npz")])
         else:
             train_cli.main(train_cli.parser_args(argv + ["--save_path", str(tmp_path / "e")]))
     message = str(err.value)
-    assert "A.10-A.12" in message and all(name in message for name in QUEUED)
+    assert "unknown model 'MARN2'" in message and len(available_models()) == 15
+    assert all(f"'{name}'" in message for name in available_models())
     assert all(name in message for name in VARIANTS)  # the available ones
     assert not list(tmp_path.iterdir())
