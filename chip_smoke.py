@@ -149,6 +149,34 @@ Phases, each fatal on failure:
     cpu`` on the same pickles; (e) the train CLI for 2 epochs and the
     predict CLI on its checkpoint for DialogueRNN and MARN_ATV (time-major
     rows), which must report ``score.txt``'s Acc and F1.
+12. the serving artifacts (``serving.save_model``, ``ServingModel``, ``python
+    -m ser_tpu_torch.serve export|run|bench``), each bucket's forward a CUDA
+    graph captured at its first request: (a) onlysp f32 at full width (seeded
+    weights, the reference's constant-initialised parameters made random, as a
+    trained model has none) exported at ``serve.py export``'s default buckets
+    (L = 110, B = 1, 8, 32, 80) and asked [74, 1], [82, 8], [82, 31] and
+    [110, 80]: each request picks the expected bucket, its first request
+    launches the recurrence kernel for the two warm-ups and one replay, each
+    later one once; the replay within 1e-5 of the eager ``Predictor`` on the
+    same padded batch, two replays bit-equal, the card against the CPU
+    artifact at rtol 1e-3, atol 1e-4; each bucket's replay, served request,
+    eager request and eager forward at the padded shape timed (CUDA events),
+    and a profile of the eval request served and eager; (b) the same weights
+    in bf16 (log-probs within 0.5 of the f32 artifact's, 0.1 on average) and
+    int8 (argmax agreement on valid rows at least 0.9, drift under 1.0; the
+    file under 0.45 of the f32 one), the recurrence kernel once a request;
+    (c) every other registry model's f32 artifact (L = 82, 110, B = 1, 32)
+    asked the eval request [82, 31]: the kernels the eager forward launches
+    on the padded batch (82 rank-1 launches for the six variants, none for
+    the rest), the replay within 1e-5 of the eager forward, the card against
+    the CPU (the valid rows for phase 11's models) at rtol 1e-3, atol 1e-4;
+    (d) the CLIs in this process: ``export`` from an ``.npz`` and from a
+    reference torch state dict under ``module.model.`` keys (the same
+    artifact byte for byte), ``run --synthetic`` on the card against ``run
+    --device cpu`` on the same pickles (utterances equal, predictions agreeing
+    on 99.9% of valid rows), ``bench`` (finite rows for every bucket), and a
+    7-class MELD artifact through ``run`` on the card (the P = 9 kernel)
+    against the CPU.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -1508,6 +1536,309 @@ def baseline_phase(torch, card, eval_batch, meld_test, names):
     return wav_launches[MFCC]
 
 
+# phase 12: the onlysp artifact at serve.py export's default buckets, its
+# requests (the first IEMOCAP eval dialogue alone, 8 and all 31 eval
+# dialogues, the reference train shape) and the bucket each must pick
+SERVE_L, SERVE_B = 110, (1, 8, 32, 80)
+SERVE_REQUESTS = (("one dialogue", (110, 1)), ("8 dialogues", (110, 8)),
+                  ("IEMOCAP eval", (110, 32)), ("train shape", (110, 80)))
+# the other models' buckets: L = 82 admits the eval request without padding
+# it in time, so a rank-1 variant's request runs its T = 82 steps
+ZOO_SERVE_L, ZOO_SERVE_B = (82, 110), (1, 32)
+# a bucket's graph replay against the eager forward on the same padded batch
+REPLAY_ATOL = 1e-5
+# the CLI artifact's L: the loader pads a batch to its length bucket, 128
+# for IEMOCAP's longest dialogues (110 utterances)
+CLI_SERVE_L = 128
+
+
+def cut(batch, l, b):
+    """The first ``b`` dialogues' first ``l`` steps of a padded batch."""
+    return {k: (v[:b, :l] if k in ("umask", "label") else v[:l, :b])
+            for k, v in batch.items() if k != "vid"}
+
+
+def run_cli_json(fn, argv):
+    """A CLI's ``main(argv)`` in this process; its last JSON object."""
+    out = run_quiet(fn, argv)
+    lines = out.strip().splitlines()
+    start = next(i for i in range(len(lines) - 1, -1, -1) if lines[i].startswith("{"))
+    return json.loads("\n".join(lines[start:])), out
+
+
+def serving_phase(torch, card, eval_batch, meld_path):
+    """Phase 12 (the module docstring). Returns the recurrence kernel's and
+    the rank-1 kernel's launches by path, each counted from 0 just before
+    its run."""
+    import numpy as np
+
+    from ser_tpu_torch import serve as serve_cli
+    from ser_tpu_torch.compat.from_jax import to_jax_params
+    from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
+    from ser_tpu_torch.models.registry import available_models
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.ops.kernels.rank1 import NAME as RANK1
+    from ser_tpu_torch.serving import GRAPH_WARMUP, Predictor, ServingModel, save_model
+
+    launches = {NAME: {}, RANK1: {}}
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    tmp = Path(tmp_dir.name)
+    n0 = int(eval_batch["umask"][0].sum())
+    L_e, B_e = eval_batch["qmask"].shape[:2]
+    batches = {"one dialogue": cut(eval_batch, n0, 1), "8 dialogues": cut(eval_batch, L_e, 8),
+               "IEMOCAP eval": cut(eval_batch, L_e, B_e),
+               "train shape": cut(synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=20),
+                                  TRAIN_L, TRAIN_B)}
+
+    # (a) onlysp f32 at full width: seeded weights with the reference's
+    #     constant-initialised parameters made random (a served model is a
+    #     trained one; with the sequence attentions' W all ones the tail sums
+    #     cancel to ~1e-6, which bf16 cannot hold: PERF.md §6)
+    gpu = Predictor(seed=0, device="cuda")
+    randomize_constants(torch, [gpu.model], seed=3)
+    weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    paths = {d: str(tmp / f"onlysp_{d}.ser") for d in ("f32", "bf16", "int8")}
+    for dtype, path in paths.items():
+        save_model(path, "MARN1_onlysp", weights, SERVE_L, SERVE_B, dtype=dtype)
+    sizes = {d: os.path.getsize(p) for d, p in paths.items()}
+    t0 = time.perf_counter()
+    served = ServingModel.load(paths["f32"], device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    cpu = ServingModel.load(paths["f32"], device="cpu")
+    print(f"[serve] onlysp artifacts at L={SERVE_L}, B={list(SERVE_B)}: "
+          + ", ".join(f"{d} {n} B" for d, n in sizes.items())
+          + f"; f32 loaded onto the card in {load_ms:.1f} ms")
+    f32_out, total = {}, 0
+    for what, bucket in SERVE_REQUESTS:
+        batch = batches[what]
+        b, l = batch["umask"].shape
+        reset_launches()
+        t0 = time.perf_counter()
+        out = served.predict(batch)
+        torch.cuda.synchronize()
+        first_ms, first = (time.perf_counter() - t0) * 1e3, dict(LAUNCHES)
+        reset_launches()
+        again = served.predict(batch)
+        torch.cuda.synchronize()
+        per_request = dict(LAUNCHES)
+        total += per_request.get(NAME, 0)
+        xp, qp, up = served.padded_inputs(batch, bucket)
+        replay = served.bucket_forward(bucket, xp, qp, up)
+        eager = gpu.predict(xp, qp, up)[0]
+        err_eager = (replay - eager).abs().max().item()
+        ref = cpu.predict(batch)
+        err_cpu = float(np.abs(out["logp"] - ref["logp"]).max())
+        graph = served.graph(bucket, xp.shape[-1], qp.shape[-1])
+        replay_ms = cuda_ms(torch, graph.replay, warmup=2, iters=20)
+        request_ms = cuda_ms(torch, lambda: served.predict(batch), warmup=1, iters=10)
+        eager_ms = cuda_ms(torch, lambda: gpu.predict(xp, qp, up), warmup=1, iters=10)
+        eager_request_ms = cuda_ms(torch, lambda: gpu.predict_batch(batch), warmup=1, iters=10)
+        print(f"[serve] onlysp f32 {what} [{l}, {b}] -> bucket {list(served.last_bucket)}: "
+              f"first request (warm-up, capture, replay) {first_ms:.1f} ms launching {first}, "
+              f"then {per_request} a request; max|replay - eager| {err_eager:.3e}, "
+              f"max|card - CPU| {err_cpu:.3e}, two replays bit-equal: "
+              f"{np.array_equal(out['logp'], again['logp'])}")
+        print(f"[time] {card} | onlysp f32 bucket {list(bucket)}: replay {replay_ms:.4f} ms; "
+              f"request [{l}, {b}] served {request_ms:.4f} ms (inputs built, copied, padded, "
+              f"replayed, copied out), eager Predictor.predict_batch {eager_request_ms:.4f} ms "
+              f"(unpadded); eager Predictor on the padded inputs {eager_ms:.4f} ms (medians of "
+              f"20, 10, 10, 10)")
+        check(served.last_bucket == bucket, f"{what}: bucket {served.last_bucket}, want {bucket}")
+        check(first == {NAME: GRAPH_WARMUP + 1} and per_request == {NAME: 1},
+              f"{what}: launches {first} then {per_request}, want {NAME} "
+              f"{GRAPH_WARMUP + 1} (warm-up and one replay) then once a request")
+        check(out["logp"].shape == (b, l, 6) and np.isfinite(out["logp"]).all(),
+              f"{what}: non-finite or misshapen log-probs")
+        check(np.array_equal(out["logp"], again["logp"]), f"{what}: two replays differ")
+        check(err_eager <= REPLAY_ATOL, f"{what}: replay and eager Predictor differ")
+        check(np.allclose(out["logp"], ref["logp"], rtol=1e-3, atol=1e-4),
+              f"{what}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        f32_out[what] = out
+    launches[NAME]["onlysp f32 artifact, a request of each bucket"] = total
+    # where the time of the eval request goes, served against eager
+    batch = batches["IEMOCAP eval"]
+    xp, qp, up = served.padded_inputs(batch, (110, 32))
+    for what, fn in (("served", lambda: served.predict(batch)),
+                     ("eager Predictor.predict_batch", lambda: gpu.predict_batch(batch))):
+        wall, busy, events = device_profile(torch, fn, 3)
+        n_kernels = kernel_split(events, 3)[0]
+        idle = (f"{100 * (1 - busy / wall):.1f}%" if busy > 0
+                else "not measured (the tracer saw no kernel)")
+        print(f"[profile] {card} | onlysp f32 {what} IEMOCAP eval request [{L_e}, {B_e}], profile "
+              f"of 3: {n_kernels:.0f} kernels a request, busy {busy / 3:.4f} ms of "
+              f"{wall / 3:.4f} ms, idle {idle}")
+    del gpu, cpu
+
+    # (b) bf16 and int8 against (a)'s f32 artifact on the card
+    check(sizes["int8"] < 0.45 * sizes["f32"], f"int8 artifact {sizes['int8']} B, f32 "
+          f"{sizes['f32']} B: not under 0.45x")
+    for dtype in ("bf16", "int8"):
+        low = ServingModel.load(paths[dtype], device="cuda")
+        total = 0
+        for what, bucket in SERVE_REQUESTS:
+            batch = batches[what]
+            low.predict(batch)
+            reset_launches()
+            out = low.predict(batch)
+            torch.cuda.synchronize()
+            per_request = dict(LAUNCHES)
+            total += per_request.get(NAME, 0)
+            ref = f32_out[what]
+            valid = batch["umask"] > 0
+            drift = np.abs(out["logp"] - ref["logp"])
+            agree = float((out["preds"] == ref["preds"])[valid].mean())
+            graph = low.graph(bucket, *(a.shape[-1] for a in low.padded_inputs(batch, bucket)[:2]))
+            replay_ms = cuda_ms(torch, graph.replay, warmup=2, iters=20)
+            print(f"[serve] onlysp {dtype} {what} -> {list(low.last_bucket)}: launches "
+                  f"{per_request}, |logp - f32| max {drift.max():.4f} mean {drift.mean():.5f} "
+                  f"(valid rows: max {drift[valid].max():.4f}), argmax agreement on valid rows "
+                  f"{agree:.4f}")
+            print(f"[time] {card} | onlysp {dtype} bucket {list(bucket)}: replay "
+                  f"{replay_ms:.4f} ms (median of 20)")
+            check(np.isfinite(out["logp"]).all() and out["logp"].dtype == np.float32,
+                  f"{dtype} {what}: non-finite or not f32")
+            check(per_request == {NAME: 1}, f"{dtype} {what}: launches {per_request}")
+            if dtype == "bf16":
+                check(drift.max() < 0.5 and drift.mean() < 0.1, f"bf16 {what}: drift")
+            else:
+                check(agree >= 0.9 and drift[valid].max() < 1.0, f"int8 {what}: agreement "
+                      f"{agree}, drift {drift[valid].max()}")
+        launches[NAME][f"onlysp {dtype} artifact, a request of each bucket"] = total
+        del low
+
+    # (c) every other model of the registry: f32 artifact, the eval request
+    for name in available_models():
+        if name == "MARN1_onlysp":
+            continue
+        gpu_m = Predictor(name, seed=0, device="cuda")
+        path = str(tmp / f"{name}.ser")
+        save_model(path, name, {k: v.cpu() for k, v in gpu_m.model.state_dict().items()},
+                   ZOO_SERVE_L, ZOO_SERVE_B)
+        served_m = ServingModel.load(path, device="cuda")
+        cpu_m = ServingModel.load(path, device="cpu")
+        t0 = time.perf_counter()
+        out = served_m.predict(eval_batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        bucket = served_m.last_bucket
+        xp, qp, up = served_m.padded_inputs(eval_batch, bucket)
+        reset_launches()
+        eager = gpu_m.predict(xp, qp, up)[0]
+        torch.cuda.synchronize()
+        eager_launches = dict(LAUNCHES)
+        reset_launches()
+        again = served_m.predict(eval_batch)
+        torch.cuda.synchronize()
+        replay_launches = dict(LAUNCHES)
+        if RANK1 in replay_launches:
+            launches[RANK1][f"{name} f32 artifact request [{L_e}, {B_e}]"] = \
+                replay_launches[RANK1]
+        replay = served_m.bucket_forward(bucket, xp, qp, up)
+        err_eager = (replay - eager).abs().max().item()
+        ref = cpu_m.predict(eval_batch)
+        rows = (eval_batch["umask"] > 0) if name in BASELINES else np.ones_like(
+            eval_batch["umask"], bool)
+        err_cpu = float(np.abs(out["logp"] - ref["logp"])[rows].max())
+        graph = served_m.graph(bucket, xp.shape[-1], qp.shape[-1])
+        replay_ms = cuda_ms(torch, graph.replay, warmup=2, iters=10)
+        eager_ms = cuda_ms(torch, lambda: gpu_m.predict(xp, qp, up), warmup=1, iters=5)
+        print(f"[serve] {name} f32 request [{L_e}, {B_e}] -> bucket {list(bucket)}: first "
+              f"request {first_ms:.1f} ms, launches a request {replay_launches} (eager "
+              f"{eager_launches}), max|replay - eager| {err_eager:.3e}, max|card - CPU| "
+              f"{err_cpu:.3e}" + (" (valid rows)" if name in BASELINES else ""))
+        print(f"[time] {card} | {name} f32 bucket {list(bucket)}: replay {replay_ms:.4f} ms "
+              f"(median of 10), eager Predictor {eager_ms:.4f} ms (median of 5)")
+        want = {RANK1: L_e} if name in VARIANTS else {}
+        check(bucket == (L_e, 32), f"{name}: bucket {bucket}")
+        check(replay_launches == eager_launches == want, f"{name}: launches a request "
+              f"{replay_launches}, eager {eager_launches}, want {want}")
+        check(np.isfinite(out["logp"]).all() and np.array_equal(out["logp"], again["logp"]),
+              f"{name}: non-finite log-probs or two replays differ")
+        check(err_eager <= REPLAY_ATOL, f"{name}: replay and eager Predictor differ")
+        check(np.allclose(out["logp"][rows], ref["logp"][rows], rtol=1e-3, atol=1e-4),
+              f"{name}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        del gpu_m, served_m, cpu_m, graph, eager, replay
+        torch.cuda.empty_cache()
+
+    # (d) the CLIs on the card: export from an .npz and from a reference
+    #     torch state dict with module.model. keys; run against the CPU on
+    #     the same pickles; bench; a MELD artifact through run
+    npz, ref_model = tmp / "onlysp.npz", tmp / "onlysp.model"
+    np.savez(npz, **to_jax_params(weights))
+    torch.save({f"module.model.{k}": v for k, v in weights.items()}, ref_model)
+    art, art_torch = str(tmp / "cli.ser"), str(tmp / "cli_torch.ser")
+    buckets = ["--L", str(CLI_SERVE_L), "--B", ",".join(map(str, SERVE_B))]
+    run_cli_json(serve_cli.main, ["export", "--initial_model", str(npz), "--out", art, *buckets])
+    _, log = run_cli_json(serve_cli.main, ["export", "--initial_model", str(ref_model),
+                                           "--torch_format", "--out", art_torch, *buckets])
+    check("is not in" not in log, f"the torch-format export skipped keys: {log}")
+    check(Path(art).read_bytes() == Path(art_torch).read_bytes(),
+          "the artifacts from the .npz and the module.model. state dict differ")
+    runs = []  # each run's predictions on its valid rows
+    real_predict = ServingModel.predict
+
+    def recording(self, batch):
+        out = real_predict(self, batch)
+        runs[-1].append(out["preds"][batch["umask"] > 0])
+        return out
+
+    def card_and_cpu(what, artifact, card_flags, cpu_flags):
+        """``run`` on the card and on the CPU: both reports, the card's
+        launches, the predictions' agreement."""
+        runs.clear()
+        ServingModel.predict = recording
+        try:
+            runs.append([])
+            reset_launches()
+            t0 = time.perf_counter()
+            rep_card, _ = run_cli_json(serve_cli.main, ["run", "--artifact", artifact,
+                                                        *card_flags])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            run_launches = dict(LAUNCHES)
+            runs.append([])
+            rep_cpu, _ = run_cli_json(serve_cli.main, ["run", "--artifact", artifact,
+                                                       "--device", "cpu", *cpu_flags])
+        finally:
+            ServingModel.predict = real_predict
+        agree = float(np.mean(np.concatenate(runs[0]) == np.concatenate(runs[1])))
+        print(f"[cli] serve run {what}: card {run_s:.1f} s, launches {run_launches}, "
+              f"{rep_card['n_utterances']} utterances, Acc {rep_card['weighted_accuracy']:.4f} "
+              f"F1 {rep_card['weighted_f1']:.4f}; CPU Acc {rep_cpu['weighted_accuracy']:.4f} "
+              f"F1 {rep_cpu['weighted_f1']:.4f}; predictions agree on {agree:.5f} of valid rows")
+        check(rep_card["n_utterances"] == rep_cpu["n_utterances"] > 0,
+              f"serve run {what}: utterances {rep_card['n_utterances']} and "
+              f"{rep_cpu['n_utterances']}")
+        check(agree >= 0.999, f"serve run {what}: card and CPU agree on {agree}")
+        check(run_launches.get(NAME, 0) >= 1, f"serve run {what} launched {run_launches}")
+        return run_launches[NAME]
+
+    pickles = generate_iemocap_pickles(str(tmp / "pickles"), seed=PREDICT_SEED)
+    launches[NAME]["serve run --synthetic (first batch of a bucket: warm-up, replay)"] = \
+        card_and_cpu("IEMOCAP --synthetic", art, ["--synthetic"], ["--feature_path", pickles])
+    rep, _ = run_cli_json(serve_cli.main, ["bench", "--artifact", art, "--iters", "20"])
+    print(f"[time] {card} | serve bench {rep['backend']}: " + ", ".join(
+        f"{k} {v['ms_per_call']} ms, {v['utterances_per_sec']} utt/s"
+        for k, v in rep["buckets"].items()))
+    check(rep["backend"] == "cuda" and len(rep["buckets"]) == len(SERVE_B)
+          and all(v["ms_per_call"] > 0 and math.isfinite(v["utterances_per_sec"])
+                  for v in rep["buckets"].values()), f"serve bench rows {rep['buckets']}")
+    meld_model = Predictor(seed=0, device="cpu", n_classes=7).model
+    randomize_constants(torch, [meld_model], seed=4)
+    meld_npz, meld_art = tmp / "meld.npz", str(tmp / "meld.ser")
+    np.savez(meld_npz, **to_jax_params(meld_model.state_dict()))
+    run_cli_json(serve_cli.main, ["export", "--initial_model", str(meld_npz), "--out", meld_art,
+                                  "--dataset", "MELD", "--n_classes", "7", "--L", "32",
+                                  "--B", f"8,{TRAIN_B}"])
+    launches[NAME]["serve run MELD 7 classes, P = 9"] = card_and_cpu(
+        "MELD --n_classes 7", meld_art, ["--feature_path", meld_path],
+        ["--feature_path", meld_path])
+    tmp_dir.cleanup()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2333,17 +2664,26 @@ def main() -> int:
     t0 = time.perf_counter()
     drnn_wav_launches = baseline_phase(torch, card, eval_batch, meld_test, BASELINES)
     print(f"[baseline] phase 11 in {time.perf_counter() - t0:.1f} s")
+
+    # 12. the serving artifacts: export, bucket graphs, run and bench
+    t0 = time.perf_counter()
+    serve_launches = serving_phase(torch, card, eval_batch, meld_path)
+    print(f"[serve] phase 12 in {time.perf_counter() - t0:.1f} s; launches by path: "
+          f"{serve_launches}")
     meld_tmp.cleanup()
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
                      "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
-                      **variant_launches}
+                      **variant_launches, **serve_launches[RANK1]}
+    lsthm_launches = {"MARN1_onlysp Predictor, three requests": main_launches,
+                      **serve_launches[NAME]}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
         "source": "ser_tpu_torch/csrc/lsthm_onlysp.cu",
         "replaces": "ser_tpu/ops/pallas/lsthm.py:296",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": sum(lsthm_launches.values()), "launches_by_path": lsthm_launches,
+        "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "p9_launches": meld_launches[7], "p9_max_abs_err": p9_err,

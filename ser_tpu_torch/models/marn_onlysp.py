@@ -186,7 +186,13 @@ class MARN1OnlySP(nn.Module):
             ys = train_recurrence(seqs, consts, g, self.dropout_rate,
                                   self.attn_dropout)
         else:
-            ys = lsthm_onlysp_recurrence_bidir(seqs, consts)  # [L, 2, B, 512]
+            # the kernel computes in f32: under bf16 autocast (the serving
+            # artifacts' bf16 and int8) its inputs widen here, and its plain
+            # version on the CPU runs with autocast off, as the kernel does
+            with torch.autocast(x.device.type, enabled=False):
+                ys = lsthm_onlysp_recurrence_bidir(
+                    tuple(s.float() for s in seqs),
+                    tuple(c.float() for c in consts))  # [L, 2, B, 512]
         h = torch.cat([self.dropout_rec(ys[:, 0], g),
                        self.dropout_rec_b(reverse_seq(ys[:, 1], umask), g)], -1)
 

@@ -8,14 +8,20 @@ temporary file and ``os.replace``, so an interrupted save never truncates a
 checkpoint. A file written by either package loads in the other.
 
 The reference loads partially: a name the model does not have is skipped
-with a print, a shape mismatch is skipped with a print, and a leading
-``module.``/``module/``/``model.``/``model/`` is stripped. Two formats:
+with a print, and a shape mismatch is skipped with a print. Two formats:
 
-- the JAX package's ``.npz`` of flat flax names (``save_parameters``); each
-  name goes through ``compat.from_jax.from_jax_params``, and a name it cannot
-  place is skipped with the same print;
+- the JAX package's ``.npz`` of flat flax names (``save_parameters``); at
+  most one leading ``module.``/``module/``/``model.``/``model/`` is stripped
+  from a name the model lacks, each name goes through
+  ``compat.from_jax.from_jax_params``, and a name it cannot place is skipped
+  with the same print;
 - with ``torch_format``, a reference torch state dict (``torch.save`` of the
-  trainer's ``state_dict()``), whose keys are the port's own.
+  trainer's ``state_dict()``), whose keys are the port's own once a leading
+  ``module.`` and then a leading ``model.`` are stripped, as the JAX
+  package's ``compat.torch_import.strip_prefixes`` strips them. As that
+  package's importer does, it prints ``<key> is not in the checkpoint.`` for
+  each key of the model the file lacks and ``<key> is not in the model.``
+  for each key of the file the model lacks.
 
 Parameters the file does not carry keep their current values.
 
@@ -62,11 +68,13 @@ def _place_jax(name, value, own):
     return None
 
 
-def _place_torch(name, value, own):
-    for cand in _candidates(name):
-        if cand in own:
-            return cand, value.detach().to("cpu", torch.float32).contiguous()
-    return None
+def _strip_torch(name):
+    """A reference torch key without its ``module.`` and then its ``model.``
+    prefix (DataParallel's and the reference trainer's)."""
+    for prefix in ("module.", "model."):
+        if name.startswith(prefix):
+            name = name[len(prefix):]
+    return name
 
 
 def _atomic_savez(path, arrays: dict) -> None:
@@ -149,20 +157,28 @@ def load_parameters(model: torch.nn.Module, path, torch_format=False,
     """Load what fits of the checkpoint at ``path`` into ``model`` and
     return the state-dict keys that were loaded."""
     own = model.state_dict()
+    placed = []  # (name in the file, key, tensor)
     if torch_format:
-        loaded = torch.load(path, map_location="cpu", weights_only=True)
-        place = _place_torch
+        loaded = {_strip_torch(k): v for k, v in torch.load(
+            path, map_location="cpu", weights_only=True).items()}
+        for key in own:
+            if key not in loaded:
+                log(f"{key} is not in the checkpoint.")
+        for key in sorted(set(loaded) - set(own)):
+            log(f"{key} is not in the model.")
+        placed = [(k, k, v.detach().to("cpu", torch.float32).contiguous())
+                  for k, v in loaded.items() if k in own]
     else:
         with np.load(path, allow_pickle=False) as z:
             loaded = {k: z[k] for k in z.files}
-        place = _place_jax
+        for origname, value in loaded.items():
+            found = _place_jax(origname, value, own)
+            if found is None:
+                log(f"{origname} is not in the model.")
+            else:
+                placed.append((origname, *found))
     accepted = {}
-    for origname, value in loaded.items():
-        placed = place(origname, value, own)
-        if placed is None:
-            log(f"{origname} is not in the model.")
-            continue
-        key, tensor = placed
+    for origname, key, tensor in placed:
         if tuple(own[key].shape) != tuple(tensor.shape):
             log(f"Wrong parameter length: {origname}, model: "
                 f"{tuple(own[key].shape)}, loaded: {tuple(tensor.shape)}")

@@ -650,3 +650,47 @@ def test_dialogue_rnn_wav_request_launches_mfcc_once_and_matches_cpu(cuda, tmp_p
     valid = torch.as_tensor(batch["umask"]).reshape(-1) > 0
     torch.testing.assert_close(out.cpu()[valid], cpu.predict_batch(batch)[0][valid],
                                rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,dtype", [("MARN1_onlysp", "f32"), ("MARN1_onlysp", "bf16"),
+                                        ("MARN1_sp", "int8"), ("BiLSTM", "bf16"),
+                                        ("DialogueRNN", "f32")])
+def test_serving_bucket_graph(cuda, name, dtype, tmp_path):
+    """A serving artifact on the card: each bucket's CUDA graph, captured at
+    its first request, launches what the eager forward launches on the
+    padded batch (the recurrence kernel once for onlysp, the rank-1 kernel
+    T times for sp), two replays are bit-equal, an f32 replay equals the
+    eager ``Predictor`` to 1e-5 and agrees with the CPU artifact to rtol
+    1e-3, atol 1e-4 on the valid rows."""
+    from ser_tpu_torch.serving import GRAPH_WARMUP, Predictor, ServingModel, save_model
+
+    gpu = Predictor(name, seed=0)
+    path = str(tmp_path / "m.ser")
+    save_model(path, name, {k: v.cpu() for k, v in gpu.model.state_dict().items()},
+               24, [2, 8], dtype=dtype)
+    served, cpu = ServingModel.load(path), ServingModel.load(path, device="cpu")
+    batch = synthetic_batch(L=20, B=5, seed=4)
+    before = dict(LAUNCHES)
+    first = served.predict(batch)
+    torch.cuda.synchronize()
+    mid = dict(LAUNCHES)
+    again = served.predict(batch)
+    torch.cuda.synchronize()
+    per_request = {k: v - mid.get(k, 0) for k, v in LAUNCHES.items() if v != mid.get(k, 0)}
+    assert served.last_bucket == (24, 8)
+    inputs = served.padded_inputs(batch, (24, 8))
+    want = {"MARN1_onlysp": {tlsthm.NAME: 1}, "MARN1_sp": {trank1.NAME: 24}}.get(name, {})
+    assert per_request == want
+    assert {k: v - before.get(k, 0) for k, v in mid.items()
+            if v != before.get(k, 0)} == {k: (GRAPH_WARMUP + 1) * v for k, v in want.items()}
+    np.testing.assert_array_equal(first["logp"], again["logp"])
+    assert np.isfinite(first["logp"]).all() and first["logp"].shape[:2] == (5, 20)
+    valid = batch["umask"] > 0
+    ref = cpu.predict(batch)["logp"]
+    if dtype == "f32":
+        eager = gpu.predict(*inputs)[0]
+        replay = served.bucket_forward((24, 8), *inputs)
+        assert (replay - eager).abs().max().item() <= 1e-5
+        np.testing.assert_allclose(first["logp"][valid], ref[valid], rtol=1e-3, atol=1e-4)
+    else:  # bf16 products on the card and on the CPU round differently
+        assert np.abs(first["logp"] - ref)[valid].max() < 0.5

@@ -8,8 +8,9 @@ JAX-initialised weights: every appended utterance's raw logits match both
 at rtol 1e-4, atol 1e-5 (the JAX package's own limits in
 ``tests/test_streaming.py``). ``reset`` reproduces the session; an append
 past ``max_len`` raises ``ValueError``. The CLI prints the JSON keys of the
-JAX ``serve.py stream`` and refuses another model with the JAX message,
-another class count, and the subcommands not yet ported.
+JAX ``serve.py stream`` and refuses another model with the JAX message and
+another class count; the port's ``export``, ``run`` and ``bench``, as the
+JAX ones, refuse to run without their required flags.
 """
 
 import json
@@ -108,6 +109,9 @@ def test_serve_cli_refusals(capsys):
     assert str(ours.value) == str(theirs.value) and "MARN1_newz only" in str(ours.value)
     with pytest.raises(ValueError, match="6 logits whatever --n_classes"):
         tserve.main(["stream", "--n_classes", "7", "--device", "cpu"])
-    for cmd in ("export", "run", "bench"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.15"):
-            tserve.main([cmd])
+    for cmd in ("export", "run", "bench"):  # their required flags
+        for main in (jserve.main, tserve.main):
+            with pytest.raises(SystemExit) as refused:
+                main([cmd])
+            assert refused.value.code == 2
+    assert "the following arguments are required" in capsys.readouterr().err
