@@ -177,6 +177,30 @@ Phases, each fatal on failure:
     on 99.9% of valid rows), ``bench`` (finite rows for every bucket), and a
     7-class MELD artifact through ``run`` on the card (the P = 9 kernel)
     against the CPU.
+13. MARN1_onlysp under the five zoo kinds of ``--encoder_attention``
+    (external, self, simplified_self, mobilevit_v2, muse), ``--infonce`` and
+    ``--debug_nans``, seeded full-width weights: (a) the IEMOCAP eval request
+    [82, 31] under each kind on the card against the CPU (rtol 1e-3, atol
+    1e-4), the op's weights drawn large (``enlarge_zoo_ops``) so that it moves
+    the log-probs by more than 2e-2, the recurrence kernel once, ms a request
+    (median of 10) beside mha's; (b) one step under each kind card against CPU at [32, 16]
+    (dropout off, constants made random): loss, gradients, the dead set
+    (onlysp's 38 unused parameters), Adam update, 2T rank-1 launches; the
+    [110, 80] step of mha, external and muse timed (median of 3) with its
+    peak memory and 220 rank-1 launches; (c) ``--infonce 0.1`` at [110, 80]:
+    from one generator state the step's loss less the plain step's equals
+    0.1·``info_nce`` of that forward's features, 220 rank-1 launches, its
+    step time and peak beside the plain step's, a step card against CPU at
+    [32, 16] with weight 1e4 (at 0.1 the term's gradients lie below the
+    contract's tolerance); (d) ``python -m ser_tpu_torch.train --synthetic
+    --epoch 2 --batch_size 16 --encoder_attention external --infonce 0.1``
+    and ``predict --encoder_attention external`` on its checkpoint
+    (``score.txt``'s Acc and F1), the train CLI under ``--debug_nans`` for
+    one step (16 dialogues), ``serve export --encoder_attention muse`` and
+    ``serve run`` on the card against the CPU, a bucket graph's replay
+    against its eager forward, and a NaN in one valid row's ``acouf``
+    raising ``FloatingPointError`` in the first step under ``--debug_nans``
+    (all in this process).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -1566,6 +1590,53 @@ def run_cli_json(fn, argv):
     return json.loads("\n".join(lines[start:])), out
 
 
+def serve_run_card_and_cpu(torch, what, artifact, card_flags, cpu_flags):
+    """``serve run`` of ``artifact`` on the card and on the CPU, in this
+    process: both reports, the card's launches and the predictions'
+    agreement on the valid rows (at least 0.999) printed; returns the card
+    run's recurrence launches."""
+    import numpy as np
+
+    from ser_tpu_torch import serve as serve_cli
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.serving import ServingModel
+
+    runs = []  # each run's predictions on its valid rows
+    real_predict = ServingModel.predict
+
+    def recording(self, batch):
+        out = real_predict(self, batch)
+        runs[-1].append(out["preds"][batch["umask"] > 0])
+        return out
+
+    ServingModel.predict = recording
+    try:
+        runs.append([])
+        reset_launches()
+        t0 = time.perf_counter()
+        rep_card, _ = run_cli_json(serve_cli.main, ["run", "--artifact", artifact, *card_flags])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = dict(LAUNCHES)
+        runs.append([])
+        rep_cpu, _ = run_cli_json(serve_cli.main, ["run", "--artifact", artifact,
+                                                   "--device", "cpu", *cpu_flags])
+    finally:
+        ServingModel.predict = real_predict
+    agree = float(np.mean(np.concatenate(runs[0]) == np.concatenate(runs[1])))
+    print(f"[cli] serve run {what}: card {run_s:.1f} s, launches {run_launches}, "
+          f"{rep_card['n_utterances']} utterances, Acc {rep_card['weighted_accuracy']:.4f} "
+          f"F1 {rep_card['weighted_f1']:.4f}; CPU Acc {rep_cpu['weighted_accuracy']:.4f} "
+          f"F1 {rep_cpu['weighted_f1']:.4f}; predictions agree on {agree:.5f} of valid rows")
+    check(rep_card["n_utterances"] == rep_cpu["n_utterances"] > 0,
+          f"serve run {what}: utterances {rep_card['n_utterances']} and "
+          f"{rep_cpu['n_utterances']}")
+    check(agree >= 0.999, f"serve run {what}: card and CPU agree on {agree}")
+    check(run_launches.get(NAME, 0) >= 1, f"serve run {what} launched {run_launches}")
+    return run_launches[NAME]
+
+
 def serving_phase(torch, card, eval_batch, meld_path):
     """Phase 12 (the module docstring). Returns the recurrence kernel's and
     the rank-1 kernel's launches by path, each counted from 0 just before
@@ -1776,48 +1847,10 @@ def serving_phase(torch, card, eval_batch, meld_path):
     check("is not in" not in log, f"the torch-format export skipped keys: {log}")
     check(Path(art).read_bytes() == Path(art_torch).read_bytes(),
           "the artifacts from the .npz and the module.model. state dict differ")
-    runs = []  # each run's predictions on its valid rows
-    real_predict = ServingModel.predict
-
-    def recording(self, batch):
-        out = real_predict(self, batch)
-        runs[-1].append(out["preds"][batch["umask"] > 0])
-        return out
-
-    def card_and_cpu(what, artifact, card_flags, cpu_flags):
-        """``run`` on the card and on the CPU: both reports, the card's
-        launches, the predictions' agreement."""
-        runs.clear()
-        ServingModel.predict = recording
-        try:
-            runs.append([])
-            reset_launches()
-            t0 = time.perf_counter()
-            rep_card, _ = run_cli_json(serve_cli.main, ["run", "--artifact", artifact,
-                                                        *card_flags])
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-            run_launches = dict(LAUNCHES)
-            runs.append([])
-            rep_cpu, _ = run_cli_json(serve_cli.main, ["run", "--artifact", artifact,
-                                                       "--device", "cpu", *cpu_flags])
-        finally:
-            ServingModel.predict = real_predict
-        agree = float(np.mean(np.concatenate(runs[0]) == np.concatenate(runs[1])))
-        print(f"[cli] serve run {what}: card {run_s:.1f} s, launches {run_launches}, "
-              f"{rep_card['n_utterances']} utterances, Acc {rep_card['weighted_accuracy']:.4f} "
-              f"F1 {rep_card['weighted_f1']:.4f}; CPU Acc {rep_cpu['weighted_accuracy']:.4f} "
-              f"F1 {rep_cpu['weighted_f1']:.4f}; predictions agree on {agree:.5f} of valid rows")
-        check(rep_card["n_utterances"] == rep_cpu["n_utterances"] > 0,
-              f"serve run {what}: utterances {rep_card['n_utterances']} and "
-              f"{rep_cpu['n_utterances']}")
-        check(agree >= 0.999, f"serve run {what}: card and CPU agree on {agree}")
-        check(run_launches.get(NAME, 0) >= 1, f"serve run {what} launched {run_launches}")
-        return run_launches[NAME]
 
     pickles = generate_iemocap_pickles(str(tmp / "pickles"), seed=PREDICT_SEED)
     launches[NAME]["serve run --synthetic (first batch of a bucket: warm-up, replay)"] = \
-        card_and_cpu("IEMOCAP --synthetic", art, ["--synthetic"], ["--feature_path", pickles])
+        serve_run_card_and_cpu(torch, "IEMOCAP --synthetic", art, ["--synthetic"], ["--feature_path", pickles])
     rep, _ = run_cli_json(serve_cli.main, ["bench", "--artifact", art, "--iters", "20"])
     print(f"[time] {card} | serve bench {rep['backend']}: " + ", ".join(
         f"{k} {v['ms_per_call']} ms, {v['utterances_per_sec']} utt/s"
@@ -1832,10 +1865,297 @@ def serving_phase(torch, card, eval_batch, meld_path):
     run_cli_json(serve_cli.main, ["export", "--initial_model", str(meld_npz), "--out", meld_art,
                                   "--dataset", "MELD", "--n_classes", "7", "--L", "32",
                                   "--B", f"8,{TRAIN_B}"])
-    launches[NAME]["serve run MELD 7 classes, P = 9"] = card_and_cpu(
-        "MELD --n_classes 7", meld_art, ["--feature_path", meld_path],
+    launches[NAME]["serve run MELD 7 classes, P = 9"] = serve_run_card_and_cpu(
+        torch, "MELD --n_classes 7", meld_art, ["--feature_path", meld_path],
         ["--feature_path", meld_path])
     tmp_dir.cleanup()
+    return launches
+
+
+# phase 13: the five zoo kinds of --encoder_attention, --infonce and
+# --debug_nans on MARN1_onlysp
+ZOO_KINDS = ("external", "self", "simplified_self", "mobilevit_v2", "muse")
+ZOO_TIMED = ("external", "muse")  # their [110, 80] step timed
+ZOO_CHECK_SHAPE = (32, 16)  # the card-against-CPU step
+ZOO_DEAD = 38  # onlysp's dead set under every kind (tests/test_torch_encoder_attention.py)
+INFONCE_W = 0.1
+# the card-against-CPU step's weight: the query is its own positive, so the
+# term is the negatives' share of the softmax, about 1e-4 at [32, 16]
+INFONCE_CHECK_W = 1e4
+ZOO_MOVES = 2e-2  # the least the enlarged op moves a request's log-probs
+ZOO_SERVE_KIND = "muse"
+
+
+def enlarge_zoo_ops(torch, models, seed):
+    """The zoo ops' parameters (``slf_attn.op.``), the same on every model,
+    drawn N(0, 100/fan-in) in place of the zoo's N(0, 0.001²) init, at which
+    an op adds about 1e-4 before the encoder's residual and LayerNorm and a
+    whole-forward comparison could not see it."""
+    g = torch.Generator().manual_seed(seed)
+    new = {n: 10 * torch.randn(p.shape, generator=g) / (p[0].numel() if p.ndim > 1
+                                                       else p.numel()) ** 0.5
+           for n, p in models[0].named_parameters() if "slf_attn.op." in n}
+    with torch.no_grad():
+        for model in models:
+            params = dict(model.named_parameters())
+            for name, value in new.items():
+                params[name].copy_(value.to(params[name].device))
+
+
+def zoo_phase(torch, card, eval_batch):
+    """Phase 13 (the module docstring). Returns the recurrence kernel's and
+    the rank-1 kernel's launches by path, each counted from 0 just before
+    its run."""
+    import numpy as np
+
+    from ser_tpu_torch import predict as predict_cli
+    from ser_tpu_torch import serve as serve_cli
+    from ser_tpu_torch.compat.from_jax import to_jax_params
+    from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.ops.kernels.rank1 import NAME as RANK1
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.serving import Predictor, ServingModel
+    from ser_tpu_torch.train import __main__ as train_cli
+    from ser_tpu_torch.train.trainer import ModelTrainer
+    from ser_tpu_torch.utils import profiling
+
+    launches = {NAME: {}, RANK1: {}}
+    T, B_e = eval_batch["qmask"].shape[:2]
+    x, qmask, umask = get_model_spec("MARN1_onlysp").make_inputs(eval_batch)
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    L_c, B_c = ZOO_CHECK_SHAPE
+    check_batch = synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2)
+
+    def card_vs_cpu_step(what, **kw):
+        """One step at ZOO_CHECK_SHAPE on the card and the CPU, dropout off,
+        the constant-initialised parameters made random: the train contract
+        and the dead set, which must be onlysp's unused parameters."""
+        trainers = {d: ModelTrainer(device=d, seed=0, lr=TRAIN_LR, **kw) for d in ("cpu", "cuda")}
+        randomize_constants(torch, [t.model for t in trainers.values()], seed=1)
+        loss = {}
+        reset_launches()
+        for d, t in trainers.items():
+            no_dropout(t.model, Dropout)
+            loss[d] = t._train_step_impl(check_batch, TRAIN_LR).item()
+        torch.cuda.synchronize()
+        step_launches = dict(LAUNCHES)
+        worst, dead_cpu, dead_card = grad_check(torch, trainers["cpu"].model,
+                                                trainers["cuda"].model)
+        moved = max((p.detach().cpu() - q.detach()).abs().max().item() for p, q in zip(
+            trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters()))
+        loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        want_dead = {n for n, _ in trainers["cpu"].model.named_parameters() if DEAD.search(n)}
+        print(f"[zoo] {what} one step [{L_c}, {B_c}] card vs CPU: |loss| rel {loss_rel:.3e}, "
+              f"gradients {worst:.3f} of the tolerance, {len(dead_card)} parameters with no "
+              f"gradient, max |param card - CPU| after Adam {moved / TRAIN_LR:.3f} lr, "
+              f"launches {step_launches}")
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{what} step loss: card and CPU disagree")
+        check(worst <= 1.0, f"{what} step gradients: card and CPU disagree")
+        check(dead_cpu == dead_card == want_dead and len(want_dead) == ZOO_DEAD,
+              f"{what} dead parameters: CPU {len(dead_cpu)}, card {len(dead_card)}, "
+              f"want the {ZOO_DEAD} unused ones")
+        check(moved <= 2.05 * TRAIN_LR, f"{what} Adam updates: card and CPU differ")
+        check(step_launches == {RANK1: 2 * L_c}, f"{what}: a step launched {step_launches}")
+
+    def timed_step(trainer, what):
+        """ms of a [110, 80] step (median of 3) and its peak memory; the
+        launches of one step, which must be 2T of the rank-1 kernel."""
+        step = lambda: trainer._train_step_impl(train_batch, TRAIN_LR)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        reset_launches()
+        step()
+        torch.cuda.synchronize()
+        step_launches = dict(LAUNCHES)
+        launches[RANK1][f"{what} train step [{TRAIN_L}, {TRAIN_B}]"] = step_launches.get(RANK1, 0)
+        check(step_launches == {RANK1: 2 * TRAIN_L},
+              f"{what}: a train step launched {step_launches}, want {RANK1} {2 * TRAIN_L}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, step, warmup=0, iters=3)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # (a) the eval request [82, 31] under each kind (mha's time beside),
+    #     card against CPU, the recurrence kernel once
+    for kind in ("mha",) + ZOO_KINDS:
+        gpu = Predictor(seed=0, device="cuda", encoder_attention=kind)
+        moved = None
+        if kind != "mha":
+            at_init = gpu.predict(x, qmask, umask)[0]
+            enlarge_zoo_ops(torch, [gpu.model], seed=4)
+        reset_launches()
+        logp = gpu.predict(x, qmask, umask)[0]
+        torch.cuda.synchronize()
+        req_launches = dict(LAUNCHES)
+        launches[NAME][f"{kind} request [{T}, {B_e}]"] = req_launches.get(NAME, 0)
+        check(req_launches == {NAME: 1}, f"{kind} request launched {req_launches}")
+        err = None
+        if kind != "mha":  # phase 4 holds mha's
+            cpu = Predictor(state_dict={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+                            device="cpu", encoder_attention=kind)
+            ref = cpu.predict(x, qmask, umask)[0]
+            err = (logp.cpu() - ref).abs().max().item()
+            check(torch.isfinite(logp).all().item() and logp.shape == ref.shape,
+                  f"{kind}: non-finite or misshapen log-probs")
+            check(torch.allclose(logp.cpu(), ref, rtol=1e-3, atol=1e-4),
+                  f"{kind} request: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+            valid = torch.as_tensor(umask).reshape(-1) > 0
+            moved = (logp - at_init)[valid.to(logp.device)].abs().max().item()
+            check(moved > ZOO_MOVES, f"{kind}: the op moves the log-probs by {moved:.3e} only")
+            del cpu
+        req_ms = cuda_ms(torch, lambda: gpu.predict(x, qmask, umask), warmup=2, iters=10)
+        print(f"[time] {card} | onlysp --encoder_attention {kind} request [{T}, {B_e}]: "
+              f"{req_ms:.4f} ms (median of 10), launches {req_launches}"
+              + ("" if err is None else f", max|gpu-cpu| {err:.3e}, the op moves the "
+                 f"log-probs by {moved:.3e}"))
+        del gpu
+
+    # (b) a step under each kind card against CPU; external's and muse's
+    #     [110, 80] step timed
+    for kind in ZOO_KINDS:
+        card_vs_cpu_step(f"--encoder_attention {kind}", encoder_attention=kind)
+    step_ms = {}
+    for kind in ("mha",) + ZOO_TIMED:
+        trainer = ModelTrainer(seed=0, lr=TRAIN_LR, encoder_attention=kind)
+        step_ms[kind] = timed_step(trainer, f"--encoder_attention {kind}")
+        del trainer
+    print(f"[time] {card} | onlysp train step [{TRAIN_L}, {TRAIN_B}] (median of 3, peak): "
+          + ", ".join(f"{k} {ms:.2f} ms {peak:.4f} GiB" for k, (ms, peak) in step_ms.items()))
+
+    # (c) --infonce: the term of one forward equals the step's loss less the
+    #     plain step's, from one generator state; a step card against CPU
+    base = ModelTrainer(seed=0, lr=TRAIN_LR)
+    nce = ModelTrainer(seed=0, lr=TRAIN_LR, infonce=INFONCE_W)
+    g = torch.Generator(base.device).set_state(base.generator.get_state())
+    base.model.train()
+    with torch.no_grad():
+        feats = base.model(*base.predictor.batch_inputs(train_batch), generator=g)
+        aux = INFONCE_W * ModelTrainer.infonce_term(feats).item()
+    del feats
+    l0 = base._train_step_impl(train_batch, TRAIN_LR).item()
+    reset_launches()
+    l1 = nce._train_step_impl(train_batch, TRAIN_LR).item()
+    torch.cuda.synchronize()
+    nce_launches = dict(LAUNCHES)
+    print(f"[zoo] --infonce {INFONCE_W} [{TRAIN_L}, {TRAIN_B}]: loss {l1:.6f}, plain {l0:.6f}, "
+          f"difference {l1 - l0:.6e}, {INFONCE_W}·info_nce of the forward {aux:.6e}, "
+          f"launches {nce_launches}")
+    check(math.isfinite(l1) and abs((l1 - l0) - aux) <= 1e-5 + 1e-4 * abs(aux),
+          "--infonce: the step's loss less the plain one is not the term")
+    check(nce_launches == {RANK1: 2 * TRAIN_L}, f"--infonce step launched {nce_launches}")
+    del base
+    nce_ms = timed_step(nce, f"--infonce {INFONCE_W}")
+    print(f"[time] {card} | onlysp train step [{TRAIN_L}, {TRAIN_B}] --infonce {INFONCE_W}: "
+          f"{nce_ms[0]:.2f} ms, peak {nce_ms[1]:.4f} GiB; plain {step_ms['mha'][0]:.2f} ms, "
+          f"peak {step_ms['mha'][1]:.4f} GiB")
+    del nce
+    card_vs_cpu_step(f"--infonce {INFONCE_CHECK_W:g}", infonce=INFONCE_CHECK_W)
+
+    # (d) the entry points: the train CLI under the zoo flags, predict on
+    #     its checkpoint, one step under --debug_nans, serve export and run
+    #     under muse, a NaN caught
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "exp"
+        what = "train CLI external --infonce, 2 epochs"
+        reset_launches()
+        t0 = time.perf_counter()
+        run_quiet(in_dir, tmp, train_cli.main, train_cli.parser_args(
+            ["--synthetic", "--epoch", "2", "--batch_size", "16", "--encoder_attention",
+             "external", "--infonce", str(INFONCE_W), "--save_path", str(exp)]))
+        torch.cuda.synchronize()
+        cli_launches = dict(LAUNCHES)
+        launches[NAME][what] = cli_launches.get(NAME, 0)
+        launches[RANK1][what] = cli_launches.get(RANK1, 0)
+        lines = score_lines(exp / "score.txt")
+        print(f"[cli] train CLI --encoder_attention external --infonce {INFONCE_W}, 2 epochs: "
+              f"{time.perf_counter() - t0:.1f} s, launches {cli_launches}")
+        for line in lines:
+            print(f"[cli]   score.txt: {line}")
+        check(len(lines) == 2, "train CLI under the zoo flags: score lines")
+        check(cli_launches.get(NAME, 0) > 0 and cli_launches.get(RANK1, 0) > 0,
+              f"train CLI under the zoo flags launched {cli_launches}")
+        # --debug_nans through the CLI: 16 dialogues, one step of 16
+        feats = generate_iemocap_pickles(str(tmp / "feats"), seed=5, n_train=16, n_test=4,
+                                         min_len=L_c // 2, max_len=L_c)
+        what = "train CLI external --infonce --debug_nans, one step"
+        reset_launches()
+        t0 = time.perf_counter()
+        run_quiet(in_dir, tmp, train_cli.main, train_cli.parser_args(
+            ["--feature_path", feats, "--epoch", "1", "--batch_size", "16", "--encoder_attention",
+             "external", "--infonce", str(INFONCE_W), "--debug_nans", "--save_path",
+             str(tmp / "exp_nans")]))
+        torch.cuda.synchronize()
+        nans_launches = dict(LAUNCHES)
+        launches[NAME][what] = nans_launches.get(NAME, 0)
+        launches[RANK1][what] = nans_launches.get(RANK1, 0)
+        nans_lines = score_lines(tmp / "exp_nans" / "score.txt")
+        print(f"[cli] {what}: {time.perf_counter() - t0:.1f} s, launches {nans_launches}; "
+              f"score.txt: {nans_lines}")
+        check(len(nans_lines) == 1 and not profiling.nan_checks_enabled(),
+              "train CLI under --debug_nans: score line or the NaN checks left on")
+        check(0 < nans_launches.get(RANK1, 0) <= 2 * L_c and nans_launches.get(NAME, 0) > 0,
+              f"train CLI under --debug_nans launched {nans_launches}")
+        out = run_quiet(predict_cli.main, [
+            "--synthetic", "--encoder_attention", "external", "--initial_model",
+            str(exp / "model" / "model_0002.model"), "--res_csv", str(tmp / "predict.csv")])
+        check("is not in the model" not in out, "predict CLI skipped checkpoint names")
+        rep = json.loads(out[out.index("{"):])
+        scored = re.search(r"Acc ([\d.]+), Fscore ([\d.]+)", lines[1]).groups()
+        predicted = (f"{rep['weighted_accuracy']:.2f}", f"{rep['weighted_f1']:.2f}")
+        print(f"[cli] predict --encoder_attention external on model_0002: Acc {predicted[0]}, "
+              f"F1 {predicted[1]}; score.txt epoch 2: Acc {scored[0]}, Fscore {scored[1]}")
+        check(predicted == scored, "external: the predict CLI's Acc/F1 differ from score.txt's")
+
+        muse = Predictor(seed=0, device="cpu", encoder_attention=ZOO_SERVE_KIND).model
+        randomize_constants(torch, [muse], seed=3)
+        enlarge_zoo_ops(torch, [muse], seed=5)
+        npz, art = tmp / "muse.npz", str(tmp / "muse.ser")
+        np.savez(npz, **to_jax_params(muse.state_dict()))
+        run_cli_json(serve_cli.main, ["export", "--initial_model", str(npz), "--out", art,
+                                      "--encoder_attention", ZOO_SERVE_KIND, "--L",
+                                      str(CLI_SERVE_L), "--B", ",".join(map(str, SERVE_B))])
+        launches[NAME][f"serve run --synthetic {ZOO_SERVE_KIND}"] = serve_run_card_and_cpu(
+            torch, f"{ZOO_SERVE_KIND} --synthetic", art, ["--synthetic"],
+            ["--synthetic"])
+        served = ServingModel.load(art, device="cuda")
+        check(served.header["encoder_attention"] == ZOO_SERVE_KIND, "the artifact's kind")
+        bucket = (CLI_SERVE_L, SERVE_B[-1])
+        xp, qp, up = served.padded_inputs(cut(eval_batch, T, B_e), bucket)
+        replay = served.bucket_forward(bucket, xp, qp, up)
+        with torch.no_grad():
+            eager = served._forward(*(t.cuda() for t in (xp, qp, up)))
+        err = (replay - eager).abs().max().item()
+        print(f"[serve] {ZOO_SERVE_KIND} bucket {list(bucket)}: max|replay - eager| {err:.3e}")
+        check(err <= REPLAY_ATOL, f"{ZOO_SERVE_KIND}: the bucket graph's replay differs")
+        del served
+
+    # the cost of --debug_nans's checks (anomaly mode syncs at every
+    # backward node) on a [32, 16] step, then a NaN caught
+    trainer = ModelTrainer(seed=0, lr=TRAIN_LR)
+    step = lambda: trainer._train_step_impl(check_batch, TRAIN_LR)  # noqa: E731
+    plain_ms = cuda_ms(torch, step, warmup=1, iters=3)
+    profiling.enable_nan_checks(True)
+    try:
+        checked_ms = cuda_ms(torch, step, warmup=1, iters=3)
+    finally:
+        profiling.enable_nan_checks(False)
+    print(f"[time] {card} | onlysp train step [{L_c}, {B_c}] with --debug_nans's checks "
+          f"{checked_ms:.2f} ms, without {plain_ms:.2f} ms (medians of 3)")
+    nan_batch = synthetic_batch(L=L_c, B=B_c, seed=3, min_len=L_c // 2)
+    nan_batch["acouf"][1, 0, 3] = np.nan  # a valid row of the first dialogue
+    profiling.enable_nan_checks(True)
+    try:
+        trainer._train_step_impl(nan_batch, TRAIN_LR)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        profiling.enable_nan_checks(False)
+    print(f"[zoo] --debug_nans, a NaN in one valid row's acouf: {raised}")
+    check(raised is not None, "--debug_nans: a NaN in acouf raised no FloatingPointError")
     return launches
 
 
@@ -2670,13 +2990,19 @@ def main() -> int:
     serve_launches = serving_phase(torch, card, eval_batch, meld_path)
     print(f"[serve] phase 12 in {time.perf_counter() - t0:.1f} s; launches by path: "
           f"{serve_launches}")
+
+    # 13. the five zoo kinds of --encoder_attention, --infonce, --debug_nans
+    t0 = time.perf_counter()
+    zoo_launches = zoo_phase(torch, card, eval_batch)
+    print(f"[zoo] phase 13 in {time.perf_counter() - t0:.1f} s; launches by path: "
+          f"{zoo_launches}")
     meld_tmp.cleanup()
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
                      "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
-                      **variant_launches, **serve_launches[RANK1]}
+                      **variant_launches, **serve_launches[RANK1], **zoo_launches[RANK1]}
     lsthm_launches = {"MARN1_onlysp Predictor, three requests": main_launches,
-                      **serve_launches[NAME]}
+                      **serve_launches[NAME], **zoo_launches[NAME]}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",

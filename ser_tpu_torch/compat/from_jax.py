@@ -31,6 +31,17 @@ sequence attentions ``marn_cell_f/crossatt_l2a/Wq``). One key can so have
 two names (nsps's ``fc.0`` is the module ``fc_0``, newz's and MARN's the
 leaf ``fc_0_kernel``), and ``to_jax_params`` reads which from the whole
 state dict (``jax_layout``).
+
+Under a zoo ``--encoder_attention`` kind an encoder's ``slf_attn`` holds
+``op``, whose leaves are flat: ``mk`` and ``mv`` (``[D, S]``, ``[S, D]``),
+``fc_q_kernel`` and ``fc_i_bias`` of the Linears, MUSE's ``dy_paras`` and
+its convolutions ``conv3_depth_kernel [k, h·d_v]`` and
+``conv5_point_kernel [h·d_v, D]``. They become the vendored torch modules'
+keys under ``<encoder>.slf_attn.op.``: ``mk.weight``, ``fc_q.weight``,
+``conv3.depth_conv.weight [h·d_v, 1, k]``,
+``conv5.pointwise_conv.weight [D, h·d_v, 1]``, kernels transposed. The JAX
+package's ``torch_export`` has no home for these leaves (it logs and skips
+them), so these keys are the port's own.
 """
 
 from __future__ import annotations
@@ -60,6 +71,10 @@ _ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attenti
                           r"reduce_dim_nn_[lav]|matchatt_transform)(?:_(\d+))?_(kernel|bias)")
 _DOTTED = {"g_attention_trans": "g_attention.trans", "matchatt_transform": "matchatt.transform"}
 _SEQ_ATT_HEAD = re.compile(r"(marn_cell_[fb]/)?crossatt_\w+")
+# a zoo op's leaves under ``<encoder>/slf_attn/op``
+_ZOO = re.compile(r"(mk|mv)|dy_paras|(fc_[qkvoi])_(kernel|bias)|(conv[135])_(depth|point)_"
+                  r"(kernel|bias)")
+_CONV = {"depth": "depth_conv", "point": "pointwise_conv"}
 
 
 def _module_path(head: str) -> str:
@@ -99,11 +114,37 @@ def _convert(name: str, value: np.ndarray):
     elif head in ("lstm_l", "lstm_a") and (m := _LSTM.fullmatch(leaf)):
         side, rev, kind = m.groups()
         return f"{head}.{_LEAF[kind]}_{side}_l0{rev or ''}", t(kind)
+    elif head.endswith("slf_attn/op") and (m := _ZOO.fullmatch(leaf)):
+        return f"{_module_path(head)}.{_zoo_key(m)}", _zoo_value(m, value)
     elif leaf in _LEAF:
         return f"{_module_path(head)}.{_LEAF[leaf]}", t(leaf)
     elif _SEQ_ATT_HEAD.fullmatch(head) and leaf in ("Wq", "Wk", "Wv"):
         return f"{_module_path(head)}.{leaf}", value
     raise KeyError(f"no MARN1 home for JAX parameter '{name}'")
+
+
+def _zoo_key(m) -> str:
+    """The port's key, below ``op.``, of a zoo leaf matched by ``_ZOO``."""
+    memory, fc, fc_kind, conv, part, conv_kind = m.groups()
+    if memory:
+        return f"{memory}.weight"
+    if fc:
+        return f"{fc}.{_LEAF[fc_kind]}"
+    if conv:
+        return f"{conv}.{_CONV[part]}.{_LEAF[conv_kind]}"
+    return "dy_paras"
+
+
+def _zoo_value(m, v: np.ndarray) -> np.ndarray:
+    """A zoo leaf in torch layout: a Linear's kernel and a memory
+    transposed, a depthwise kernel ``[k, C]`` as ``[C, 1, k]``, a pointwise
+    one ``[C, D]`` as ``[D, C, 1]``."""
+    memory, _, fc_kind, _, part, conv_kind = m.groups()
+    if memory or fc_kind == "kernel":
+        return v.T
+    if conv_kind == "kernel":
+        return v.T[:, None, :] if part == "depth" else v.T[:, :, None]
+    return v
 
 
 def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -129,6 +170,8 @@ _KEY_LSTM = re.compile(r"(lstm_[la])\.(weight|bias)_(ih|hh)_l0(_reverse)?")
 _KEY_JOINED = re.compile(  # whole dotted segments only
     r"(?<![^.])(?:(nn_out|fc|fc2)\.(\d+)|(marn_cell_[fb])\.(encoder_[la]))(?![^.])")
 _KEY_SEQ_JOINED = re.compile(r"(?<![^.])(nn_out|fc|fc2)\.(\d+)(?![^.])")
+_KEY_ZOO = re.compile(r"((?:.+\.)?slf_attn\.op)\.(?:(mk|mv)\.weight|(dy_paras)|(fc_[qkvoi])\."
+                      r"(weight|bias)|(conv[135])\.(depth_conv|pointwise_conv)\.(weight|bias))")
 
 
 def jax_layout(state_dict) -> str:
@@ -175,13 +218,34 @@ def _to_jax(key: str, v: np.ndarray, layout: str = "flat"):
         return f"{m[1]}/{m[2]}", v
     if "." not in key:  # the fusion scalars w, v, v1, v2 and p
         return key, v
+    if m := _KEY_ZOO.fullmatch(key):
+        head, memory, dy, fc, fc_leaf, conv, part, conv_leaf = m.groups()
+        head = _jax_head(head, layout)
+        if memory:
+            return f"{head}/{memory}", v.T
+        if dy:
+            return f"{head}/dy_paras", v
+        if fc:
+            return f"{head}/{fc}_{kind[fc_leaf]}", v.T if fc_leaf == "weight" else v
+        depth = part == "depth_conv"
+        name = f"{head}/{conv}_{'depth' if depth else 'point'}_{kind[conv_leaf]}"
+        if conv_leaf == "weight":  # [C, 1, k] -> [k, C]; [D, C, 1] -> [C, D]
+            v = v[:, 0, :].T if depth else v[:, :, 0].T
+        return name, v
     head, leaf = key.rsplit(".", 1)
-    joined = _KEY_SEQ_JOINED if layout == "cells" else _KEY_JOINED
-    head = joined.sub(lambda m: "_".join(p for p in m.groups() if p), head)
-    head = head.replace(".", "/")
+    head = _jax_head(head, layout)
     if leaf == "weight":  # a Dense kernel [out, in], or a LayerNorm scale
         return (f"{head}/kernel", v.T) if v.ndim == 2 else (f"{head}/scale", v)
     return f"{head}/{leaf}", v
+
+
+def _jax_head(head: str, layout: str) -> str:
+    """A torch module path as the JAX module path of a model named by
+    ``layout``: a Sequential's index, and outside mf and la a cell's
+    encoder, joined with an underscore."""
+    joined = _KEY_SEQ_JOINED if layout == "cells" else _KEY_JOINED
+    head = joined.sub(lambda m: "_".join(p for p in m.groups() if p), head)
+    return head.replace(".", "/")
 
 
 def to_jax_params(state_dict) -> dict[str, np.ndarray]:

@@ -52,11 +52,12 @@ class BiLSTM(nn.Module):
     x_a)`` with x_l, x_a the encoded time-major features. In train mode the
     encoders' dropouts draw from ``generator``, which must be given."""
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__()
         g = generator
-        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g, attention=encoder_attention)
         self.lstm_l = TorchBiLSTM(D_M, DH_L, generator=g)
         self.lstm_a = TorchBiLSTM(D_M, DH_A, generator=g)
         self.nn_out = probs_head(2 * (DH_L + DH_A), n_classes, g)

@@ -80,14 +80,16 @@ class MARNAttention(nn.Module):
     ``[L*B, n_classes]``, time-major rows. In train mode every dropout draws
     from ``generator``, which must be given."""
 
-    def __init__(self, n_classes: int, trimodal: bool, *, generator: torch.Generator):
+    def __init__(self, n_classes: int, trimodal: bool, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__()
         g = generator
         self.names = "lav" if trimodal else "la"
         dims = [MODALITIES[m] for m in self.names]
         total_h = sum(dh for _, dh, _ in dims)
         for m, (d, dh, red) in zip(self.names, dims):
-            setattr(self, f"encoder_{m}", EncoderLayer(d, 50, 8, 40, 40, generator=g))
+            setattr(self, f"encoder_{m}", EncoderLayer(d, 50, 8, 40, 40, generator=g,
+                                                       attention=encoder_attention))
             setattr(self, f"lsthm_{m}", LSTHM(d, dh, total_h, None, generator=g))
             setattr(self, f"reduce_dim_nn_{m}",
                     nn.Sequential(TorchLinear(K * dh, red, generator=g)))
@@ -122,8 +124,10 @@ class MARN(MARNAttention):
     ``[B*L, n_classes]``, batch-major rows. Nothing is drawn in train mode
     (its head's dropout is 0), but the generator rule is the others'."""
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
-        super().__init__(n_classes, trimodal=False, generator=generator)
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
+        super().__init__(n_classes, trimodal=False, generator=generator,
+                         encoder_attention=encoder_attention)
         self.lstm_l = TorchBiLSTM(D_M, DH_L, generator=generator)
         self.lstm_a = TorchBiLSTM(D_M, DH_A, generator=generator)
 

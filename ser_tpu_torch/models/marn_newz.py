@@ -100,14 +100,15 @@ class MARN1NewZ(nn.Module):
     dropout_rate = 0.3  # after att_l, att_a and att_cross_modal, each step
 
     def __init__(self, n_classes: int = 6, causal_encoder: bool = False, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, encoder_attention: str = "mha"):
         super().__init__()
         g = generator
         self.n_classes = n_classes
         self.causal_encoder = causal_encoder
-        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
-        self.encoder_v = EncoderLayer(SPEAKER, 50, 8, 40, 40, generator=g)  # unused
+        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_v = EncoderLayer(SPEAKER, 50, 8, 40, 40, generator=g,
+                                      attention=encoder_attention)  # unused
         self.lsthm_l = LSTHM(D_M, H, D, SPEAKER, generator=g)
         self.lsthm_a = LSTHM(D_M, H, D, SPEAKER, generator=g)
         self.S = TorchLinear(SPEAKER, SPEAKER, generator=g)

@@ -132,13 +132,16 @@ class MARN1OnlySP(nn.Module):
     dropout_rate = 0.5  # h_s, h_l, h_a in the recurrence
     attn_dropout = 0.2  # the per-step rank-1 attention
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__()
         g = generator
         self.n_classes = n_classes
         self.linear_in = TorchLinear(self.d_r, self.d_m, generator=g)
-        self.encoder_l = EncoderLayer(100, 40, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(100, 40, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(100, 40, 8, 40, 40, generator=g,
+                                      attention=encoder_attention)
+        self.encoder_a = EncoderLayer(100, 40, 8, 40, 40, generator=g,
+                                      attention=encoder_attention)
         self.marn_cell_f = MARNCellOnlySP(generator=g)
         self.marn_cell_b = MARNCellOnlySP(generator=g)
         for name in ("w", "v", "v1", "v2"):

@@ -320,13 +320,16 @@ class MARNCellSharedLSTM(_Cell):
     by one shared LSTMCell ``lstm_s``; azs also holds its encoders (d_inner
     50) and runs them on its direction's own input."""
 
-    def __init__(self, with_encoders: bool, *, generator: torch.Generator):
+    def __init__(self, with_encoders: bool, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__(D_M, generator=generator)
         self.lstm_s = RNNCellWeights(H, H, 4, generator=generator)
         self.speaker_term = with_encoders  # azs's LSTHMs are 4-term
         if with_encoders:
-            self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=generator)
-            self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=generator)
+            self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=generator,
+                                          attention=encoder_attention)
+            self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=generator,
+                                          attention=encoder_attention)
 
     def encode(self, x, generator=None):
         """azs: time-major ``(x_l, x_a)`` of x's first 200 dims, encoded."""
@@ -385,14 +388,14 @@ class _CellNoAttn(nn.Module):
     speaker LSTMCell ``lstm_s``, the encoders (d_inner 50) and the two
     sequence cross attentions, all inside the cell."""
 
-    def __init__(self, *, generator: torch.Generator):
+    def __init__(self, *, generator: torch.Generator, encoder_attention: str = "mha"):
         super().__init__()
         g = generator
         self.lsthm_l = LSTHM(D_M, H, H, H, generator=g, v_out=H)
         self.lsthm_a = LSTHM(D_M, H, H, H, generator=g, v_out=H)
         self.lstm_s = RNNCellWeights(H, H, 4, generator=g)
-        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 50, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 50, 8, 40, 40, generator=g, attention=encoder_attention)
         self.crossatt_l2a = CrossAttentionSeq()
         self.crossatt_a2l = CrossAttentionSeq()
 
@@ -428,8 +431,8 @@ class MARNCellLA(_CellNoAttn):
     and S in one product. The encoders, the sequence attentions and V are
     declared and never applied."""
 
-    def __init__(self, *, generator: torch.Generator):
-        super().__init__(generator=generator)
+    def __init__(self, *, generator: torch.Generator, encoder_attention: str = "mha"):
+        super().__init__(generator=generator, encoder_attention=encoder_attention)
         self.lstm_la_l = RNNCellWeights(D_M, D_M, 4, generator=generator)
         self.lstm_la_a = RNNCellWeights(D_M, D_M, 4, generator=generator)
 
@@ -501,11 +504,12 @@ class MARN1SP(_Variant):
     the two sequence attentions, the head on 1280. Returns ``(log_probs,
     x_l, x_a)``."""
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__(n_classes)
         g = generator
-        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
         self.marn_cell_f = MARNCellSP(generator=g)
         self.marn_cell_b = MARNCellSP(generator=g)
         self.dropout_rec, self.dropout_rec_b = Dropout(0.5), Dropout(0.5)
@@ -534,11 +538,12 @@ class MARN1CF(_Variant):
     output, one sequence attention (l2a; a2l declared, unused), the head on
     1152. Returns ``(log_probs, x_l, x_a)``."""
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__(n_classes)
         g = generator
-        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
         self.marn_cell_f = MARNCellSharedLSTM(False, generator=g)
         self.marn_cell_b = MARNCellSharedLSTM(False, generator=g)
         self.dropout_rec, self.dropout_rec_b = Dropout(0.5), Dropout(0.5)
@@ -566,11 +571,14 @@ class MARN1AZS(_Variant):
     shared-LSTMCell recurrence with a 4-term LSTHM, no sequence attention,
     the head on 768. Returns ``(log_probs,)``."""
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__(n_classes)
         g = generator
-        self.marn_cell_f = MARNCellSharedLSTM(True, generator=g)
-        self.marn_cell_b = MARNCellSharedLSTM(True, generator=g)
+        self.marn_cell_f = MARNCellSharedLSTM(True, generator=g,
+                                              encoder_attention=encoder_attention)
+        self.marn_cell_b = MARNCellSharedLSTM(True, generator=g,
+                                              encoder_attention=encoder_attention)
         self.dropout_rec, self.dropout_rec_b = Dropout(0.5), Dropout(0.5)
         d_feat = 2 * 3 * H
         self.nn_out = _head(d_feat, n_classes, g)
@@ -593,12 +601,13 @@ class MARN1SPS(_Variant):
     head ``nn_out(fc(feats) + x_l + x_a)``. Returns ``(log_probs, x_l,
     x_a)``."""
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__(n_classes)
         g = generator
         self.linear_in = TorchLinear(D_R, D_M, generator=g)
-        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
         self.marn_cell_f = MARNCellSPS(generator=g)
         self.marn_cell_b = MARNCellSPS(generator=g)
         self.dropout_rec, self.dropout_rec_b = Dropout(0.5), Dropout(0.5)
@@ -641,13 +650,13 @@ class MARN1NSPS(_Variant):
     x_a)``."""
 
     def __init__(self, n_classes: int = 6, use_text_encoder: bool = True, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, encoder_attention: str = "mha"):
         super().__init__(n_classes)
         g = generator
         self.use_text_encoder = use_text_encoder
         self.linear_in = TorchLinear(D_R, D_M, generator=g)
-        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
-        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g)
+        self.encoder_l = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
+        self.encoder_a = EncoderLayer(D_M, 40, 8, 40, 40, generator=g, attention=encoder_attention)
         self.marn_cell_f = MARNCellNSPS(generator=g)
         self.marn_cell_b = MARNCellNSPS(generator=g)
         self.dropout_rec = Dropout(0.5)
@@ -697,11 +706,12 @@ class _NoAttnBidir(_Variant):
 
     rank1 = False
 
-    def __init__(self, cell, n_classes: int, generator: torch.Generator):
+    def __init__(self, cell, n_classes: int, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
         super().__init__(n_classes)
         g = generator
-        self.marn_cell_f = cell(generator=g)
-        self.marn_cell_b = cell(generator=g)
+        self.marn_cell_f = cell(generator=g, encoder_attention=encoder_attention)
+        self.marn_cell_b = cell(generator=g, encoder_attention=encoder_attention)
         self.dropout_rec, self.dropout_rec_b = Dropout(0.5), Dropout(0.5)
         self.nn_out = _head(4 * H, n_classes, g)
         self.linear = TorchLinear(4 * H, 32, generator=g)  # unused
@@ -722,8 +732,9 @@ class MARN1MF(_NoAttnBidir):
     step = staticmethod(_mf_step)
     carry = staticmethod(_carry(6))
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
-        super().__init__(MARNCellMF, n_classes, generator)
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
+        super().__init__(MARNCellMF, n_classes, generator, encoder_attention)
 
     def _inputs(self, cell, x, generator):
         return cell.encode(x, generator)
@@ -736,8 +747,9 @@ class MARN1LA(_NoAttnBidir):
     step = staticmethod(_la_step)
     carry = staticmethod(lambda B, P: [(B, H)] * 6 + [(B, D_M)] * 4 + [(B, P, H)])
 
-    def __init__(self, n_classes: int = 6, *, generator: torch.Generator):
-        super().__init__(MARNCellLA, n_classes, generator)
+    def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
+                 encoder_attention: str = "mha"):
+        super().__init__(MARNCellLA, n_classes, generator, encoder_attention)
 
     def _inputs(self, cell, x, generator):
         return x[:, :, :D_M], x[:, :, D_M:]

@@ -30,6 +30,12 @@ takes log-softmax on top, as in the JAX package); ``logp_layout`` says
 their order: ``"bl"`` batch-major (row b·L + t), ``"tb"`` time-major (row
 t·B + b; MARN_AT and MARN_ATV). ``rows`` and ``grid`` map a ``[B, L]``
 array (labels, masks) to and from that order.
+
+``build`` takes the encoders' self-attention kind (``--encoder_attention``,
+``"mha"`` or a zoo op) as an argument; DialogueRNN has no encoder and takes
+it unread. ``feature_outputs`` marks the eight models (as the JAX registry
+does) whose output tuple carries the time-major features that the InfoNCE
+term reads: ``(logp, x_l, x_a)``, for MARN1_newz ``(logits, x_a, x_l)``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ser_tpu_torch.models.marn_newz import MARN1NewZ
 from ser_tpu_torch.models.marn_onlysp import MARN1OnlySP
 from ser_tpu_torch.models.marn_variants import (MARN1AZS, MARN1CF, MARN1LA, MARN1MF,
                                                 MARN1NSPS, MARN1SP, MARN1SPS)
+from ser_tpu_torch.ops.encoder_attention import check_kind
 
 TRIMODAL_TEXT = 100  # the RoBERTa mean's dims the trimodal input keeps
 
@@ -64,12 +71,15 @@ def _time_major_rows(out):
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    build: Callable  # (n_classes, generator) -> nn.Module
+    build: Callable  # (n_classes, generator, encoder_attention="mha") -> nn.Module
     make_inputs: Callable  # (numpy batch dict) -> (x, qmask, umask) arrays
     text_features: Callable  # (numpy batch dict) -> x's host-side part, array
     join_inputs: Callable  # (text_features tensor, acouf tensor) -> x, on their device
     logp_layout: str = "bl"  # the rows' order: "bl" batch-major, "tb" time-major
     extract_logp: Callable = _first  # the model's output -> [N, C] rows
+    # the output is (logp, query, negatives) time-major [L, B, D] features
+    # that --infonce reads; the JAX registry's flag, not the tuple's length
+    feature_outputs: bool = False
 
     def rows(self, a):
         """A ``[B, L]`` array or tensor flattened in the rows' order."""
@@ -124,22 +134,30 @@ _BUILDERS = {
     "MARN1_la": MARN1LA,
     "MARN": MARN,
 }
+# the eight models whose ModelSpec has feature_outputs=True in the JAX registry
+_FEATURE_OUTPUTS = {"MARN1_onlysp", "MARN1_newz", "BiLSTM", "MARN1_sp", "MARN1_sps",
+                    "MARN1_nsps", "MARN1_no_en", "MARN1_cf"}
 _REGISTRY = {
-    name: ModelSpec(name, lambda n_classes, generator, cls=cls: cls(
-        n_classes, generator=generator), _marn1_inputs, _marn1_text, _join)
+    name: ModelSpec(name, lambda n_classes, generator, encoder_attention="mha", cls=cls: cls(
+        n_classes, generator=generator, encoder_attention=encoder_attention),
+        _marn1_inputs, _marn1_text, _join, feature_outputs=name in _FEATURE_OUTPUTS)
     for name, cls in _BUILDERS.items()}
 # the JAX registry's fixed class counts (6 or 7 whatever --n_classes says)
 _REGISTRY.update({
-    "MARN1_newz": ModelSpec("MARN1_newz", lambda n, g: MARN1NewZ(6, generator=g),
-                            _marn1_inputs, _marn1_text, _join),
-    "BiLSTM": ModelSpec("BiLSTM", lambda n, g: BiLSTM(6, generator=g),
-                        _marn1_inputs, _marn1_text, _join),
-    "MARN_AT": ModelSpec("MARN_AT", lambda n, g: MARNAttention(7, False, generator=g),
-                         _marn1_inputs, _marn1_text, _join, logp_layout="tb"),
-    "MARN_ATV": ModelSpec("MARN_ATV", lambda n, g: MARNAttention(6, True, generator=g),
-                          _trimodal_inputs, _trimodal_text, _trimodal_join,
-                          logp_layout="tb"),
-    "DialogueRNN": ModelSpec("DialogueRNN", lambda n, g: BiModel(generator=g),
+    "MARN1_newz": ModelSpec("MARN1_newz", lambda n, g, kind="mha": MARN1NewZ(
+        6, generator=g, encoder_attention=kind), _marn1_inputs, _marn1_text, _join,
+        feature_outputs=True),
+    "BiLSTM": ModelSpec("BiLSTM", lambda n, g, kind="mha": BiLSTM(
+        6, generator=g, encoder_attention=kind), _marn1_inputs, _marn1_text, _join,
+        feature_outputs=True),
+    "MARN_AT": ModelSpec("MARN_AT", lambda n, g, kind="mha": MARNAttention(
+        7, False, generator=g, encoder_attention=kind), _marn1_inputs, _marn1_text, _join,
+        logp_layout="tb"),
+    "MARN_ATV": ModelSpec("MARN_ATV", lambda n, g, kind="mha": MARNAttention(
+        6, True, generator=g, encoder_attention=kind), _trimodal_inputs, _trimodal_text,
+        _trimodal_join, logp_layout="tb"),
+    # no encoder: the kind is taken and not used, as in the JAX package
+    "DialogueRNN": ModelSpec("DialogueRNN", lambda n, g, kind="mha": BiModel(generator=g),
                              _trimodal_inputs, _trimodal_text, _trimodal_join,
                              extract_logp=_time_major_rows),
 })
@@ -156,6 +174,10 @@ def available_models():
     return sorted(_REGISTRY)
 
 
-def build_model(name: str, generator: torch.Generator,
-                n_classes: int = 6) -> torch.nn.Module:
-    return get_model_spec(name).build(n_classes, generator)
+def build_model(name: str, generator: torch.Generator, n_classes: int = 6,
+                encoder_attention: str = "mha") -> torch.nn.Module:
+    """``name``'s model with ``encoder_attention``'s self-attention in its
+    encoders (``ops.encoder_attention.SEQUENCE_KINDS``; an unknown kind
+    raises ``ValueError``, also for DialogueRNN, which has no encoder)."""
+    check_kind(encoder_attention)
+    return get_model_spec(name).build(n_classes, generator, encoder_attention)

@@ -1,16 +1,20 @@
-"""Transformer encoder block, ``mha`` branch (counterpart of
-``ser_tpu/ops/encoder.py``). Batch-first ``[B, L, d_model]``. In train mode
+"""Transformer encoder block (counterpart of ``ser_tpu/ops/encoder.py``).
+Its self-attention is the reference's MHA or, under another
+``--encoder_attention`` kind, a zoo op (``ops/encoder_attention.py``).
+Batch-first ``[B, L, d_model]``. In train mode
 the reference's three dropouts (rate 0.1: the attention map, after ``fc``,
 in the FFN) draw from the generator passed to ``forward``; in eval they are
 the identity. An optional self-attention mask ``[B or 1, Lq, Lk]`` (0 masks
 out) sets those logits to -1e9 before the softmax, as the JAX package does;
-MARN1_newz's causal encoder passes a lower-triangular one."""
+MARN1_newz's causal encoder passes a lower-triangular one, which a zoo op
+does not read."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ser_tpu_torch.ops.encoder_attention import ZooSelfAttention, check_kind
 from ser_tpu_torch.ops.layers import Dropout, TorchLayerNorm, TorchLinear
 
 
@@ -70,14 +74,20 @@ class PositionwiseFeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """MHA then FFN; MARN1_onlysp builds ``EncoderLayer(100, 40, 8, 40, 40)``,
-    mf, la and newz ``EncoderLayer(100, 50, 8, 40, 40)``."""
+    """Self-attention then FFN; MARN1_onlysp builds ``EncoderLayer(100, 40,
+    8, 40, 40)``, mf, la and newz ``EncoderLayer(100, 50, 8, 40, 40)``.
+    ``attention`` is ``"mha"`` (``MultiHeadAttention``) or another kind of
+    ``SEQUENCE_KINDS`` (``ZooSelfAttention``, which ignores n_head, d_k and
+    d_v); an unknown kind raises ``ValueError``."""
 
     def __init__(self, d_model: int, d_inner: int, n_head: int, d_k: int,
-                 d_v: int, *, generator: torch.Generator):
+                 d_v: int, *, generator: torch.Generator, attention: str = "mha"):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           generator=generator)
+        if check_kind(attention) == "mha":
+            self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
+                                               generator=generator)
+        else:
+            self.slf_attn = ZooSelfAttention(attention, d_model, generator=generator)
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner,
                                                generator=generator)
 

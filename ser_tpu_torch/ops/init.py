@@ -2,7 +2,8 @@
 
 Counterpart of ``ser_tpu/ops/init.py``: ``nn.Linear`` weights and biases are
 U(+-1/sqrt(fan_in)), RNN-cell weights and biases U(+-1/sqrt(hidden)),
-LayerNorm ones and zeros, and the attention and fusion vectors ones. Drawing
+LayerNorm ones and zeros, and the attention and fusion vectors ones; the
+attention zoo's Linears are N(0, 0.001²) (``normal_``). Drawing
 from a caller's ``torch.Generator`` makes full-width weights reproducible
 from a seed, with no files.
 """
@@ -19,6 +20,15 @@ def uniform_(tensor: torch.Tensor, bound: float,
         draw = torch.rand(tensor.shape, generator=generator,
                           dtype=tensor.dtype, device=generator.device)
         return tensor.copy_(draw * (2 * bound) - bound)
+
+
+def normal_(tensor: torch.Tensor, std: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Fill ``tensor`` in place with N(0, std²) from ``generator``."""
+    with torch.no_grad():
+        draw = torch.randn(tensor.shape, generator=generator,
+                           dtype=tensor.dtype, device=generator.device)
+        return tensor.copy_(draw * std)
 
 
 def generator(seed: int) -> torch.Generator:

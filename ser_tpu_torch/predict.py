@@ -8,6 +8,8 @@ the metrics as JSON (counterpart of the JAX package's ``predict.py`` and of
         --initial_model CKPT.npz [--device cpu]
     python -m ser_tpu_torch.predict --dataset MELD --n_classes 7 \\
         --feature_path /path/to/features/ --initial_model CKPT.npz
+    python -m ser_tpu_torch.predict --encoder_attention external \\
+        --initial_model CKPT.npz ...
 
 The flags are ``predict.py``'s, plus ``--device`` (default ``cuda``; without
 CUDA it raises unless given ``--device cpu``). ``--initial_model`` is the
@@ -16,7 +18,9 @@ reference torch state dict; either loads tolerantly. ``--synthetic`` writes
 IEMOCAP pickles, as the JAX CLI does; for MELD, point ``--feature_path`` at
 pickles from ``data.synthetic.generate_meld_pickles``. MELD carries no raw
 audio, so with ``--audio_frontend mfcc`` its loader gives ``acouf`` and the
-front end is not used.
+front end is not used. ``--encoder_attention`` must be the kind the
+checkpoint was trained with: another one builds other encoder parameters,
+and the tolerant loader says each checkpoint name it skips.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ser_tpu_torch.data.loaders import get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
 from ser_tpu_torch.models.registry import get_model_spec
+from ser_tpu_torch.ops.encoder_attention import check_kind
 from ser_tpu_torch.serving import Predictor
 from ser_tpu_torch.train.checkpoint import load_parameters
 from ser_tpu_torch.train.metrics import weighted_accuracy, weighted_f1
@@ -61,21 +66,18 @@ def _parser():
                         "device from raw waveforms")
     p.add_argument("--torch_format", action="store_true",
                    help="--initial_model is a reference torch state dict")
-    p.add_argument("--encoder_attention", type=str, default="mha")
+    p.add_argument("--encoder_attention", type=str, default="mha",
+                   help="the kind the checkpoint was trained with (train "
+                        "--encoder_attention): it changes the encoder parameters")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
 
 def _check_servable(args):
-    """Raise on what the port cannot serve: an unknown model (``KeyError``
-    listing the available ones) or a flag it has not yet, naming the
-    ROADMAP item."""
+    """Raise on an unknown model (``KeyError`` listing the available ones)
+    or an unknown ``--encoder_attention`` (``ValueError``)."""
     get_model_spec(args.model)
-    if args.encoder_attention != "mha":
-        raise NotImplementedError(
-            f"--encoder_attention {args.encoder_attention}: the port has the "
-            "reference MHA encoder only; the attention zoo is queued "
-            "(ROADMAP A.16)")
+    check_kind(args.encoder_attention)
 
 
 def fusion_weights(model: torch.nn.Module) -> dict:
@@ -150,7 +152,8 @@ def main(argv=None):
                   "train": train_loader}[args.split]
         predictor = Predictor(
             args.model, seed=args.seed, device=device, n_classes=args.n_classes,
-            audio_frontend=args.audio_frontend if use_frontend else None)
+            audio_frontend=args.audio_frontend if use_frontend else None,
+            encoder_attention=args.encoder_attention)
         load_parameters(predictor.model, args.initial_model,
                         torch_format=args.torch_format)
         acc, f1 = eval_network(predictor, loader, args.res_csv)

@@ -2,7 +2,7 @@
 
     python -m ser_tpu_torch.serve export --initial_model CKPT.npz \\
         --model MARN1_onlysp --out model.ser [--L 110 --B 1,8,32,80] \\
-        [--dtype f32|bf16|int8] [--torch_format]
+        [--dtype f32|bf16|int8] [--torch_format] [--encoder_attention muse]
     python -m ser_tpu_torch.serve run --artifact model.ser --synthetic [--device cpu]
     python -m ser_tpu_torch.serve bench --artifact model.ser [--iters 50] [--device cpu]
     python -m ser_tpu_torch.serve stream [--n_utts 60] [--max_len 128] \\
@@ -11,14 +11,16 @@
 ``export`` loads a checkpoint (the JAX package's ``.npz``, or with
 ``--torch_format`` a reference torch state dict) and writes the port's
 serving artifact (``serving.save_model``: the weights in f32, bf16 or int8
-and the [L, B] shape buckets); ``run`` evaluates a split with an artifact
+and the [L, B] shape buckets, the encoders' ``--encoder_attention`` kind
+in its header); ``run`` evaluates a split with an artifact
 (the port's, or a JAX ``SER2`` v3 one) and prints the metrics JSON of
 ``serve.py run``; ``bench`` prints each bucket's ms a call and utterances
 a second: on the card the bucket's CUDA graph replayed ``--iters`` times
 between two CUDA events, the lowest of three windows, on the CPU eager
 calls on the host clock. ``stream`` drives one synthetic dialogue of
 ``--n_utts`` utterances through ``streaming.NewZStream`` one utterance at a
-time (MARN1_newz, the causal encoder contract) and prints, as ``serve.py
+time (MARN1_newz with the MHA encoder, the causal encoder contract) and
+prints, as ``serve.py
 stream`` does, the ms a new utterance (median, p90) and the drift of its
 logits from the bidirectional batch forward. The flags are ``serve.py``'s,
 plus ``--device`` on ``run``, ``bench`` and ``stream`` (default ``cuda``;
@@ -63,7 +65,8 @@ def cmd_export(args):
     """A checkpoint as a serving artifact; prints ``serve.py export``'s
     JSON line."""
     _check_servable(args)
-    predictor = Predictor(args.model, seed=args.seed, device="cpu", n_classes=args.n_classes)
+    predictor = Predictor(args.model, seed=args.seed, device="cpu", n_classes=args.n_classes,
+                          encoder_attention=args.encoder_attention)
     load_parameters(predictor.model, args.initial_model, torch_format=args.torch_format)
     Ls, Bs = _int_list(args.L), _int_list(args.B)
     save_model(args.out, args.model, predictor.model.state_dict(), Ls, Bs,
@@ -233,7 +236,9 @@ def main(argv=None):
                     help="accepted for serve.py's command line; the artifact runs on "
                          "the card and the CPU")
     pe.add_argument("--torch_format", action="store_true")
-    pe.add_argument("--encoder_attention", type=str, default="mha")
+    pe.add_argument("--encoder_attention", type=str, default="mha",
+                    help="the kind the checkpoint was trained with; recorded in "
+                         "the artifact's header")
     pe.add_argument("--dtype", type=str, default="f32", choices=["f32", "bf16", "int8"],
                     help="f32; bf16 = weights rounded to bf16, forward under bf16 "
                          "autocast (f32 in and out); int8 = weights-only int8 storage, "

@@ -15,14 +15,19 @@ the JSON header + ``<Q`` length + the weights section, the JAX ``SER2``
 layout without its program sections. The header has the JAX header's keys
 in its vocabulary (``logp_layout`` ``"bl"`` or ``"tb"``, ``inputs``
 ``"marn1"`` or ``"trimodal"``); ``platforms`` is always ``["cuda",
-"cpu"]``, where the artifact runs. The weights section is JAX's v3 one:
+"cpu"]``, where the artifact runs. A zoo ``--encoder_attention`` kind is
+recorded as ``encoder_attention``; a header without the field (the JAX
+package's, or one of the reference MHA's) is ``"mha"``, and a loaded header
+must name the kind its weights' names hold. The weights
+section is JAX's v3 one:
 the model's parameters under their JAX names (``compat.from_jax.
 to_jax_params``), sorted by name, raw bytes in ``params.leaves``' order,
 f32, bf16 (rounded to nearest even) or int8 (weights-only, per output
 channel, in the JAX layout: a leaf ``<name>/q`` int8 and ``<name>/s`` f32).
 For the same weights it is the JAX artifact's section byte for byte.
 ``ServingModel.load`` also reads the JAX package's ``SER2`` v3 artifacts
-(their weights section; the programs are skipped). bf16 and int8
+(their weights section; the programs are skipped); their header has no
+kind, which the weights' names under ``slf_attn/op/`` determine. bf16 and int8
 artifacts compute under bf16 autocast with f32 in and out: the weights are
 the artifact's bf16 values (int8 dequantized once at load, as ``q.bf16 *
 s.bf16``), and the hand-written kernels run in f32 on them.
@@ -45,7 +50,9 @@ import torch
 from ser_tpu_torch.compat.from_jax import from_jax_params, to_jax_params
 from ser_tpu_torch.data.frontend import make_frontend
 from ser_tpu_torch.device import resolve_device
-from ser_tpu_torch.models.registry import TRIMODAL_TEXT, _trimodal_inputs, get_model_spec
+from ser_tpu_torch.models.registry import (TRIMODAL_TEXT, _trimodal_inputs, build_model,
+                                           get_model_spec)
+from ser_tpu_torch.ops.encoder_attention import encoder_attention_of
 from ser_tpu_torch.ops.init import generator
 from ser_tpu_torch.ops.kernels import LAUNCHES
 
@@ -67,14 +74,18 @@ class Predictor:
     and raises where CUDA is missing, unless it is ``"cpu"``.
     ``audio_frontend`` (None or ``"mfcc"``) computes the audio slot from the
     ``wav`` field of a batch given to ``predict_batch``.
+    ``encoder_attention`` is the encoders' self-attention kind
+    (``--encoder_attention``; ``"mha"`` or a zoo op), which must be the one
+    that ``state_dict`` was made with.
     """
 
     def __init__(self, model_name: str = "MARN1_onlysp", state_dict=None,
                  seed: int = 0, device=None, audio_frontend: str | None = None,
-                 n_classes: int = 6):
+                 n_classes: int = 6, encoder_attention: str = "mha"):
         self.device = resolve_device(device)
         self.spec = get_model_spec(model_name)
-        model = self.spec.build(n_classes, generator(seed))
+        self.encoder_attention = encoder_attention
+        model = build_model(model_name, generator(seed), n_classes, encoder_attention)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         # eval mode here; a trainer that shares the model switches it
@@ -211,14 +222,17 @@ def export_model(model_name, state_dict, L, B, *, n_classes=6, dataset="IEMOCAP"
     bf16 autocast) or ``"int8"`` (weights-only int8 storage, dequantized to
     bf16 once at load). ``platforms`` is accepted for the JAX signature and
     CLI; the artifact holds no program, so it runs on the card and the CPU
-    whatever it says, and the header records ``PLATFORMS``."""
+    whatever it says, and the header records ``PLATFORMS``. A zoo
+    ``--encoder_attention`` kind, read from ``state_dict``'s keys, is
+    recorded as ``encoder_attention``."""
     del platforms
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be 'f32', 'bf16' or 'int8', got {dtype!r}")
+    kind = encoder_attention_of(state_dict)
     spec = get_model_spec(model_name)
     buckets = _as_buckets(L, B)
     meta, raw = _weights_section(state_dict, dtype)
-    header = json.dumps({
+    header = {
         "model": model_name,
         "n_classes": n_classes,
         "dataset": dataset,
@@ -231,7 +245,10 @@ def export_model(model_name, state_dict, L, B, *, n_classes=6, dataset="IEMOCAP"
         "params": {"leaves": meta},
         "logp_layout": spec.logp_layout,
         "inputs": "trimodal" if spec.make_inputs is _trimodal_inputs else "marn1",
-    }).encode()
+    }
+    if kind != "mha":  # an MHA header keeps the JAX header's keys
+        header["encoder_attention"] = kind
+    header = json.dumps(header).encode()
     return b"".join([MAGIC, struct.pack("<I", len(header)), header,
                      struct.pack("<Q", len(raw)), raw])
 
@@ -327,15 +344,23 @@ class ServingModel:
     admits the query and records it in ``self.last_bucket``. ``device``
     defaults to ``cuda`` and raises where CUDA is missing, unless it is
     ``"cpu"``. On the card a bucket's forward is a ``BucketGraph``
-    (``graphs``, by bucket and input widths), made at its first request."""
+    (``graphs``, by bucket and input widths), made at its first request.
+    The encoders' kind is the one ``state_dict``'s names hold; the header
+    gets it as ``encoder_attention`` (a JAX header has no such field). A
+    header that names another kind than its weights raises ``ValueError``."""
 
     def __init__(self, header, state_dict, device=None):
-        self.header = header
+        kind = encoder_attention_of(state_dict)
+        if header.get("encoder_attention", kind) != kind:
+            raise ValueError(f"the header's encoder_attention "
+                             f"{header['encoder_attention']!r} is not its weights' {kind!r}")
+        self.header = {**header, "encoder_attention": kind}
         self.buckets = [tuple(lb) for lb in header["buckets"]]
         self.dtype = header.get("dtype", "f32")
         self.last_bucket = None
         self.predictor = Predictor(header["model"], state_dict=state_dict,
-                                   device=device, n_classes=header["n_classes"])
+                                   device=device, n_classes=header["n_classes"],
+                                   encoder_attention=self.header["encoder_attention"])
         self.model, self.spec = self.predictor.model, self.predictor.spec
         self.device = self.predictor.device
         self.graphs: dict[tuple, BucketGraph] = {}

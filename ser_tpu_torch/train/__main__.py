@@ -6,6 +6,8 @@
         --feature_path /path/to/features/
     python -m ser_tpu_torch.train --synthetic --save_state --resume latest
     python -m ser_tpu_torch.train --eval True --initial_model CKPT.npz ...
+    python -m ser_tpu_torch.train --synthetic --encoder_attention muse \
+        --infonce 0.1 --debug_nans
 
 The flags are ``train.py``'s, plus ``--device`` (default ``cuda``; without
 CUDA it raises unless given ``--device cpu``). The epoch loop is the same:
@@ -16,8 +18,12 @@ weights of each eval go to ``parameters.csv`` in the working directory.
 With ``--save_state`` every such epoch also writes ``model/last.state``;
 ``--resume PATH`` (or ``latest``: that file when it exists) continues from
 one as if the run had never stopped: the same parameters, Adam state,
-generator, shuffles and F1 history. The flags the port cannot honour yet are
-refused with the ROADMAP item that queues them.
+generator, shuffles and F1 history. ``--encoder_attention`` swaps the
+encoders' MHA for a zoo op, ``--infonce W`` adds W times the InfoNCE term to
+the loss of the models with feature outputs, and ``--debug_nans`` raises
+``FloatingPointError`` at the first NaN of a train step
+(``utils.profiling``). The flags the port cannot honour yet are refused with
+the ROADMAP item that queues them.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ from ser_tpu_torch.data.loaders import PrefetchLoader, get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
 from ser_tpu_torch.models.registry import get_model_spec
+from ser_tpu_torch.ops.encoder_attention import check_kind
 from ser_tpu_torch.train.trainer import ModelTrainer
+from ser_tpu_torch.utils import profiling
 from ser_tpu_torch.utils.paths import init_args
 from ser_tpu_torch.utils.seeding import seed_everything
 
@@ -46,16 +54,15 @@ _QUEUED = {
     "compute_dtype": (lambda v: v != "f32", "bf16 mixed precision", "A.9"),
     "dp": (lambda v: v, "data parallelism", "A.14"),
     "tp": (lambda v: v > 1, "tensor parallelism", "A.14"),
-    "infonce": (lambda v: v > 0, "the InfoNCE and extra losses", "A.12"),
-    "encoder_attention": (lambda v: v != "mha", "the attention zoo", "A.16"),
-    "debug_nans": (lambda v: v, "NaN checks", "A.16"),
 }
 
 
 def check_supported(args) -> None:
-    """Raise on an unknown model (``KeyError`` listing the available ones)
-    or a flag the port cannot honour yet, naming its ROADMAP item."""
+    """Raise on an unknown model (``KeyError`` listing the available ones),
+    an unknown ``--encoder_attention`` (``ValueError``) or a flag the port
+    cannot honour yet, naming its ROADMAP item."""
     get_model_spec(args.model)
+    check_kind(args.encoder_attention)
     for flag, (is_set, what, item) in _QUEUED.items():
         value = getattr(args, flag)
         if is_set(value):
@@ -82,15 +89,23 @@ def main(args):
     resolve_device(args.device)  # before any file is written
     seed_everything(args.seed)
     init_args(args)
+    if args.encoder_attention != "mha":
+        print(f"Encoder self-attention: {args.encoder_attention} "
+              "(attention-zoo surface)")
     use_frontend = args.audio_frontend not in (None, "", "none")
     tmp = None
     if args.synthetic:
         tmp = tempfile.TemporaryDirectory(prefix="ser_tpu_torch_synth_")
         args.feature_path = generate_iemocap_pickles(
             tmp.name, seed=args.seed, with_wav=use_frontend)
+    checks_were_on = profiling.nan_checks_enabled()
+    if args.debug_nans:
+        profiling.enable_nan_checks(True)
     try:
         _run(args, use_frontend)
     finally:
+        # an in-process caller gets its own setting back
+        profiling.enable_nan_checks(checks_were_on)
         if tmp is not None:
             tmp.cleanup()
 
@@ -203,7 +218,8 @@ def parser_args(argv=None):
                    help="generate synthetic IEMOCAP-shaped data")
     p.add_argument("--dp", action="store_true")
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first NaN of a train step")
     p.add_argument("--save_state", action="store_true",
                    help="also write model/last.state every test_step epochs: "
                         "parameters, Adam state, epoch, generator, F1 history")
@@ -216,8 +232,12 @@ def parser_args(argv=None):
                         "torch state dict")
     p.add_argument("--torch_format", action="store_true",
                    help="--initial_model is a reference torch state dict")
-    p.add_argument("--infonce", type=float, default=0.0)
-    p.add_argument("--encoder_attention", type=str, default="mha")
+    p.add_argument("--infonce", type=float, default=0.0,
+                   help="weight of the InfoNCE term on the modality features "
+                        "(models without them print a line and skip it)")
+    p.add_argument("--encoder_attention", type=str, default="mha",
+                   help="the encoders' self-attention: mha / external / self / "
+                        "simplified_self / mobilevit_v2 / muse")
     p.add_argument("--compute_dtype", type=str, default="f32",
                    choices=["f32", "bf16"])
     p.add_argument("--audio_frontend", type=str, default="none",

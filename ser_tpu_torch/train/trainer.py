@@ -9,7 +9,14 @@
   parameters, Adam's moments and step counts, the epoch and the state of the
   generator every dropout draws from (which also seeds the rank-1
   attention's mask stream);
-- Adam with coupled decay 2e-5 and StepLR (``train/optim.py``).
+- Adam with coupled decay 2e-5 and StepLR (``train/optim.py``);
+- ``encoder_attention``: the encoders' self-attention kind (``"mha"`` or a
+  zoo op, ``ops/encoder_attention.py``), and ``infonce``: the weight of
+  the reference's commented-out InfoNCE term, added to the loss of the
+  models whose spec has ``feature_outputs``;
+- with ``utils.profiling.enable_nan_checks()`` (``--debug_nans``), NaN
+  checks on the forward's outputs, the loss and the backward of every train
+  step.
 
 The model lives on one device (``cuda`` unless the caller asks for the CPU).
 A train step is eager PyTorch: the forward with every dropout drawn from the
@@ -32,23 +39,30 @@ import torch
 from ser_tpu_torch.predict import eval_network, fusion_weights
 from ser_tpu_torch.serving import Predictor
 from ser_tpu_torch.train import checkpoint as ckpt
-from ser_tpu_torch.train.losses import masked_loss
+from ser_tpu_torch.train.losses import info_nce, masked_loss
 from ser_tpu_torch.train.optim import set_lr, step_lr, torch_adam
+from ser_tpu_torch.utils import profiling
 
 
 class ModelTrainer:
     def __init__(self, device=None, lr=1e-3, test_step=1, lr_decay=0.98,
                  model="MARN1_onlysp", loss="CrossEntropy", n_classes=6,
                  seed=111, weight_decay=2e-5, res_csv_path="res.csv",
-                 audio_frontend=None, **kwargs):
+                 audio_frontend=None, infonce=0.0, encoder_attention="mha", **kwargs):
         del kwargs  # the CLI passes all of its flags
         self.predictor = Predictor(model, seed=seed, device=device,
-                                   n_classes=n_classes, audio_frontend=audio_frontend)
+                                   n_classes=n_classes, audio_frontend=audio_frontend,
+                                   encoder_attention=encoder_attention)
         self.device = self.predictor.device
         self.model = self.predictor.model
         self.loss_kind = loss
         self.n_classes = n_classes
         self.res_csv_path = res_csv_path
+        self.infonce = float(infonce)
+        if self.infonce > 0 and not self.predictor.spec.feature_outputs:
+            # the JAX trainer's quiet no-op for the models without features
+            print(f"[infonce] {model} has no modality-feature outputs; "
+                  f"the InfoNCE term is skipped")
         # every dropout mask of a train step is drawn from this generator
         self.generator = torch.Generator(self.device).manual_seed(int(seed))
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -71,16 +85,33 @@ class ModelTrainer:
         # labels and mask in the order of the model's rows (JAX _flat_targets)
         labels = spec.rows(torch.as_tensor(batch["label"], device=self.device))
         self.optimizer.zero_grad(set_to_none=True)
-        logp = spec.extract_logp(self.model(x, qmask, umask, generator=self.generator))
+        out = self.model(x, qmask, umask, generator=self.generator)
+        profiling.check_finite("the forward's outputs",
+                               *(out if isinstance(out, tuple) else (out,)))
+        logp = spec.extract_logp(out)
         # MARN1_newz and BiLSTM have 6 outputs whatever n_classes says; only
         # where the widths differ does a label past the outputs add 0, as in
         # the JAX package (ROADMAP §C), and elsewhere it raises
         loss = masked_loss(logp, labels, spec.rows(umask), kind=self.loss_kind,
                            outside_adds_zero=logp.shape[-1] != self.n_classes)
-        loss.backward()
+        if self.infonce > 0 and spec.feature_outputs:
+            loss = loss + self.infonce * self.infonce_term(out)
+        profiling.check_finite("the loss", loss)
+        profiling.backward(loss)
         set_lr(self.optimizer, lr)
         self.optimizer.step()
         return loss.detach()
+
+    @staticmethod
+    def infonce_term(out) -> torch.Tensor:
+        """The reference's commented formulation (``model_trainer.py:111-115``):
+        each dialogue's time-major features ``out[1]``, ``out[2]`` ``[L, B,
+        D]`` flattened to ``[B, L·D]``, padded positions included; query and
+        positive ``out[1]``, negatives ``out[2]``, unpaired."""
+        b = out[1].shape[1]
+        q = out[1].transpose(0, 1).reshape(b, -1)
+        neg = out[2].transpose(0, 1).reshape(b, -1)
+        return info_nce(q, q, neg, negative_mode="unpaired")
 
     def train_network(self, epoch, loader):
         lr = self.lr_at(epoch)

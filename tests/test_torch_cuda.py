@@ -17,7 +17,10 @@ against CPU with every kernel counter unmoved, and ``NewZStream`` on the card
 against its causal batch forward and the CPU stream (rtol 1e-4, atol 1e-5).
 DialogueRNN, BiLSTM, MARN, MARN_AT and MARN_ATV the same way (a request's
 valid rows, at 2 and 9 parties), and DialogueRNN's wav request, which
-launches the MFCC kernel once.
+launches the MFCC kernel once. MARN1_onlysp under each zoo
+``--encoder_attention`` kind (a request, the recurrence kernel once, with the
+op's weights drawn large enough to move the log-probs past the tolerance),
+and a muse step with ``--infonce`` (the train contract, 2T rank-1 launches).
 """
 
 import numpy as np
@@ -694,3 +697,80 @@ def test_serving_bucket_graph(cuda, name, dtype, tmp_path):
         np.testing.assert_allclose(first["logp"][valid], ref[valid], rtol=1e-3, atol=1e-4)
     else:  # bf16 products on the card and on the CPU round differently
         assert np.abs(first["logp"] - ref)[valid].max() < 0.5
+
+
+ZOO = ("external", "self", "simplified_self", "mobilevit_v2", "muse")
+
+
+def _enlarge_zoo_ops(models, seed=0):
+    """The zoo ops' parameters (``slf_attn.op.``) drawn N(0, 100/fan-in), the
+    same on every model: at the zoo's N(0, 0.001²) init an op adds about
+    1e-4 before the encoder's residual and LayerNorm, below the request's
+    tolerance."""
+    g = torch.Generator().manual_seed(seed)
+    new = {n: 10 * torch.randn(p.shape, generator=g) / (p[0].numel() if p.ndim > 1
+                                                       else p.numel()) ** 0.5
+           for n, p in models[0].named_parameters() if "slf_attn.op." in n}
+    with torch.no_grad():
+        for model in models:
+            params = dict(model.named_parameters())
+            for name, value in new.items():
+                params[name].copy_(value.to(params[name].device))
+
+
+@pytest.mark.parametrize("kind", ZOO)
+def test_zoo_kind_request_launches_the_recurrence_once_and_matches_cpu(cuda, kind):
+    """MARN1_onlysp under each ``--encoder_attention`` zoo kind, its op's
+    weights enlarged so that the op moves the log-probs by more than 2e-2: a
+    request on the card runs the recurrence kernel once and agrees with the
+    CPU at rtol 1e-3, atol 1e-4."""
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.serving import Predictor
+
+    batch = synthetic_batch(L=20, B=6, seed=4, min_len=8)
+    x, qmask, umask = get_model_spec("MARN1_onlysp").make_inputs(batch)
+    gpu = Predictor(seed=0, encoder_attention=kind)
+    at_init = gpu.predict(x, qmask, umask)[0].cpu()
+    _enlarge_zoo_ops([gpu.model])
+    cpu = Predictor(state_dict={k: v.cpu() for k, v in gpu.model.state_dict().items()},
+                    device="cpu", encoder_attention=kind)
+    before = LAUNCHES[tlsthm.NAME]
+    logp = gpu.predict(x, qmask, umask)[0]
+    torch.cuda.synchronize()
+    assert LAUNCHES[tlsthm.NAME] == before + 1
+    torch.testing.assert_close(logp.cpu(), cpu.predict(x, qmask, umask)[0],
+                               rtol=1e-3, atol=1e-4)
+    valid = torch.as_tensor(umask).reshape(-1) > 0
+    assert (logp.cpu() - at_init)[valid].abs().max().item() > 2e-2
+
+
+def test_infonce_muse_train_step_card_matches_cpu(cuda):
+    """One onlysp step under ``muse`` with ``infonce=1e4`` on the card against
+    the CPU, dropout off: 2T rank-1 launches, the loss at rtol 1e-5, every
+    gradient within the train contract, the same dead set, the Adam update
+    within 2.05 lr. The query is its own positive, so the term is the
+    negatives' share of the softmax, about 1e-4: at 1e4 it is a sizable part
+    of the loss and its gradients lie far above the tolerance
+    (``tests/test_torch_infonce.py``)."""
+    T = 16
+    batch = synthetic_batch(L=T, B=4, seed=2, min_len=6)
+    trainers = {d: ModelTrainer(device=d, seed=3, encoder_attention="muse", infonce=1e4)
+                for d in ("cpu", "cuda")}
+    _randomize_constants([t.model for t in trainers.values()])
+    before = LAUNCHES[trank1.NAME]
+    losses = {}
+    for d, t in trainers.items():
+        _no_dropout(t.model)
+        losses[d] = t._train_step_impl(batch, 1e-3).item()
+    assert LAUNCHES[trank1.NAME] == before + 2 * T
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    cpu = dict(trainers["cpu"].model.named_parameters())
+    card = dict(trainers["cuda"].model.named_parameters())
+    top = max(p.grad.abs().max().item() for p in cpu.values() if p.grad is not None)
+    for name, p in cpu.items():
+        q = card[name]
+        assert (p.grad is None) == (q.grad is None), name
+        if p.grad is not None:
+            tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
+            assert (q.grad.cpu() - p.grad).abs().max().item() <= tol, name
+        assert (q.detach().cpu() - p.detach()).abs().max().item() <= 2.05e-3, name

@@ -107,11 +107,19 @@ def test_predict_batch_of_features_is_predict_of_make_inputs(files):
     assert pred.n_requests == 2
 
 
-def test_cli_refuses_what_the_port_cannot_serve(files):
+def test_cli_refuses_what_the_port_cannot_serve(files, capsys, tmp_path):
+    """An unknown model or encoder attention raises; a zoo kind is served
+    (the MHA checkpoint's encoder weights then have no home, and the tolerant
+    loader says so)."""
     _, feat, ckpt, _ = files
     base = ["--initial_model", ckpt, "--feature_path", feat, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A.16"):
-        tpredict.main(base + ["--encoder_attention", "external"])
+    tpredict.main(base + ["--encoder_attention", "external",
+                          "--res_csv", str(tmp_path / "res.csv")])
+    out = capsys.readouterr().out
+    assert "is not in the model" in out
+    assert np.isfinite(json.loads(out[out.index("{"):])["weighted_f1"])
+    with pytest.raises(ValueError, match="unknown encoder attention 'mhb'"):
+        tpredict.main(base + ["--encoder_attention", "mhb"])
     with pytest.raises(KeyError, match=r"unknown model 'MARN2'; available: .*'MARN1_onlysp'"):
         tpredict.main(base + ["--model", "MARN2"])
 

@@ -391,8 +391,8 @@ def test_serve_cli_bench_smoke(params, tmp_path, capsys):
 
 def test_serve_cli_meld_and_refusals(tmp_path, capsys):
     """A 7-class MELD artifact (nine parties) through export and run; an
-    encoder attention other than the reference MHA is refused naming its
-    ROADMAP item; the artifact's commands need CUDA unless given the CPU."""
+    export under a zoo encoder attention records its kind, an unknown kind
+    is refused; the artifact's commands need CUDA unless given the CPU."""
     model = Predictor("MARN1_onlysp", seed=2, device="cpu", n_classes=7).model
     ckpt = str(tmp_path / "meld.npz")
     from ser_tpu_torch.train.checkpoint import save_parameters as tsave_parameters
@@ -406,9 +406,14 @@ def test_serve_cli_meld_and_refusals(tmp_path, capsys):
     report = _last_json(capsys.readouterr().out)
     assert report["model"] == "MARN1_onlysp" and report["n_utterances"] > 0
     assert 0 <= report["weighted_accuracy"] <= 100
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16"):
+    zoo = str(tmp_path / "zoo.ser")
+    tserve.main(["export", "--initial_model", ckpt, "--out", zoo, "--dataset", "MELD",
+                 "--n_classes", "7", "--L", "16", "--B", "2", "--encoder_attention",
+                 "external"])
+    assert ServingModel.load(zoo, device="cpu").header["encoder_attention"] == "external"
+    with pytest.raises(ValueError, match="unknown encoder attention 'mhb'"):
         tserve.main(["export", "--initial_model", ckpt, "--out", art,
-                     "--encoder_attention", "external"])
+                     "--encoder_attention", "mhb"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.main(["bench", "--artifact", art])

@@ -82,20 +82,27 @@ def _disable_jax_dropout(monkeypatch):
             monkeypatch.setattr(mod, "rank1_cross_attention", r1_det)
 
 
-def run_step(res_csv, batch=None, n_classes=6, init=None, model="MARN1_onlysp"):
+def run_step(res_csv, batch=None, n_classes=6, init=None, model="MARN1_onlysp",
+             **trainer_kwargs):
     """Both packages' step of ``model`` from one init, dropout off: the JAX
     loss, gradients and updated parameters from one jitted call of the JAX
     trainer's ``_train_step_impl`` (its gradients caught from its
     ``jax.value_and_grad``); the port's trainer after its step. ``batch``
     defaults to an IEMOCAP-shaped one at [L, B]; ``init`` maps the JAX
-    trainer's initial parameters to the ones both sides start from."""
+    trainer's initial parameters to the ones both sides start from;
+    ``trainer_kwargs`` (``infonce``, ``encoder_attention``) go to both
+    trainers, the kind to the JAX package as its ``config.ENCODER_ATTENTION``
+    for the step."""
     if batch is None:
         batch = synthetic_batch(L=L, B=B, seed=0, min_len=4)
     mp = pytest.MonkeyPatch()
     try:
         _disable_jax_dropout(mp)
+        if "encoder_attention" in trainer_kwargs:
+            from ser_tpu import config
+            mp.setattr(config, "ENCODER_ATTENTION", trainer_kwargs["encoder_attention"])
         jt = JModelTrainer(model=model, seed=3, n_classes=n_classes,
-                           res_csv_path=res_csv)
+                           res_csv_path=res_csv, **trainer_kwargs)
         caught = {}
         value_and_grad = jax.value_and_grad
 
@@ -117,11 +124,11 @@ def run_step(res_csv, batch=None, n_classes=6, init=None, model="MARN1_onlysp"):
         mp.undo()
 
     pt = ModelTrainer(device="cpu", model=model, seed=3, lr=LR, n_classes=n_classes,
-                      res_csv_path=res_csv)
+                      res_csv_path=res_csv, **trainer_kwargs)
     pt.model.load_state_dict(from_jax_params(flatten_params(params)), strict=True)
     no_dropout(pt.model)
     loss = pt._train_step_impl(batch, LR)
-    return dict(jloss=float(jloss), jgrads=flatten_params(jgrads),
+    return dict(batch=batch, jloss=float(jloss), jgrads=flatten_params(jgrads),
                 params=flatten_params(params), new_params=flatten_params(new_params),
                 pt=pt, loss=loss)
 
