@@ -201,6 +201,34 @@ Phases, each fatal on failure:
     against its eager forward, and a NaN in one valid row's ``acouf``
     raising ``FloatingPointError`` in the first step under ``--debug_nans``
     (all in this process).
+14. ``--compute_dtype bf16`` and ``--dp``: (a) the bf16 form of the rank-1
+    kernel (registers and spills of both forms) against its plain bf16 form
+    at [2, B, 128] for B = 80, 31, 1 and p = 0 and 0.2, forward and
+    backward: z, dx1, dx2 within 2^-7 of the plain value plus 1e-5, dwq and
+    dwk plus 1e-5 of their largest entry; every output equal to the f32
+    kernel's on the widened inputs rounded once to bf16; two runs bit-equal;
+    its mask the f32 kernel's row by row; the device time of a forward and
+    backward pair beside the f32 kernel's (CUDA graphs, in turns), its
+    wrapper time, the plain bf16 form's and ``F.scaled_dot_product_attention``
+    in bf16; (b) MARN1_onlysp's bf16 step at [110, 80]: 220 launches of the
+    bf16 kernel and no other kernel of the port, master parameters,
+    gradients and Adam state f32, ms a step (median of 5) and peak memory in
+    turns with the f32 step, and one profiled step of each (kernel launches,
+    device busy and idle); one bf16 step of each of the six variants at
+    [32, 16] (2T or 2T - 1 bf16 launches) and of DialogueRNN and BiLSTM (no
+    port kernel); (c) the bf16-against-f32 gradient distance of onlysp at
+    [9, 3] on the card and on the CPU, at the reference's init and with its
+    constant-initialised parameters made random (the card's at most 1.5 x
+    the CPU's + 0.02 there); (d) ``python -m ser_tpu_torch.train --synthetic
+    --epoch 2 --batch_size 16 --compute_dtype bf16`` in this process;
+    (e) ``--dp`` as one NCCL rank: a step with dropout bit-equal to the plain
+    step from the same state; then two processes sharing the card over gloo
+    (this script with ``--dp_worker``), a dropout-off step at [32, 16]
+    against the one-process step at the train-step contract (loss,
+    gradients, the 38 dead, Adam's update), parameters bit-equal across the
+    processes; then ``python -m ser_tpu_torch.train --dp --synthetic --epoch
+    1 --batch_size 16`` in both processes: one ``score.txt`` block and line,
+    one ``res.csv``, the rank-1 and recurrence kernels launched in each.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -348,9 +376,12 @@ def ptxas_summary(log):
             r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*: Compiling|\Z)",
             log, re.S):
         short = re.search(r"\d+([a-z_]+kernel(?:I(?:L[ib]\d+E)+)?)", name)
+        # the storage type of a kernel templated over it (the rank-1 kernel)
+        form = (" (bf16)" if "__nv_bfloat16" in name
+                else " (f32)" if re.search(r"kernelIfE", name) else "")
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-        lines.append(f"{short.group(1) if short else name}: "
+        lines.append(f"{short.group(1) if short else name}{form}: "
                      f"{regs.group(1) if regs else '?'} registers, spill stores "
                      f"{spill.group(1) if spill else '?'} B, loads "
                      f"{spill.group(2) if spill else '?'} B")
@@ -556,16 +587,17 @@ def rank1_sdpa(torch, x1, x2, wq, wk, p):
     return rank1_sdpa_call(torch, *rank1_sdpa_qkv(torch, x1, x2, wq, wk), p)
 
 
-def rank1_bound(B, D=128):
+def rank1_bound(B, D=128, itemsize=4):
     """Least time for one step's rank-1 attention at [2, B, D]: ``{part:
     (ms, bound_by)}`` for the forward, the backward and both. The work that
     depends on (b, i, k): forward one exp and 4 flops a pair (product,
     shift, the two sums); backward one exp again (the function keeps no
     [B, D, D] state between the two) and 12 flops (logit 2, A2, A3, B1, B2,
     B3 as products and sums). Bytes: x1, x2, wq, wk in, z out; backward
-    also g in, dx1, dx2, dwq, dwk out. Each of exps at SFU_RATE, flops at
-    F32_PEAK, bytes at HBM_RATE; the largest is the bound."""
-    pairs, row, vec = 2 * B * D * D, 2 * B * D * 4, 2 * D * 4
+    also g in, dx1, dx2, dwq, dwk out, ``itemsize`` bytes an element (2 in
+    bf16). Each of exps at SFU_RATE, flops at F32_PEAK (the function's sums
+    are f32 in both forms), bytes at HBM_RATE; the largest is the bound."""
+    pairs, row, vec = 2 * B * D * D, 2 * B * D * itemsize, 2 * D * itemsize
     work = {"fwd": (pairs, 4 * pairs, 3 * row + 2 * vec),
             "bwd": (pairs, 12 * pairs, 5 * row + 4 * vec)}
     work["both"] = tuple(a + b for a, b in zip(work["fwd"], work["bwd"]))
@@ -2159,6 +2191,402 @@ def zoo_phase(torch, card, eval_batch):
     return launches
 
 
+# phase 14: --compute_dtype bf16 training through the bf16 form of the
+# rank-1 kernel, and --dp data parallelism over torch.distributed
+# the bf16 kernel against its plain version: each output is rounded to bf16
+# once from f32 sums taken in another order, so the two may differ by one
+# bf16 ulp (at most 2^-7 of the value); dwq and dwk's floor scales with
+# their largest entry, as RANK1_ATOL's does
+BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-5
+BF16_DIST_SHAPE = (9, 3)  # the bf16-against-f32 gradient distance, card and CPU
+DP_CHECK_SHAPE = (32, 16)  # the NCCL one-rank and the two-process steps
+DP_WORKERS = 2
+ONLYSP_DEAD = 38
+
+
+def grad_vector(torch, model):
+    """Every parameter's gradient (zeros where ``.grad`` is None) as one f64
+    vector on the CPU."""
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .detach().double().cpu().reshape(-1) for p in model.parameters()])
+
+
+def bf16_distance(torch, device, batch, constants_random):
+    """How far a bf16 step's gradients lie from the f32 step's on
+    ``device``: ‖g_bf16 − g_f32‖ / ‖g_f32‖ over all parameters, MARN1_onlysp
+    with seeded weights (the constant-initialised ones made random when
+    ``constants_random``), dropout off."""
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    grads = {}
+    for dtype in ("f32", "bf16"):
+        trainer = ModelTrainer(device=device, seed=0, lr=TRAIN_LR, compute_dtype=dtype,
+                               res_csv_path=None)
+        if constants_random:
+            randomize_constants(torch, [trainer.model], seed=1)
+        no_dropout(trainer.model, Dropout)
+        trainer._train_step_impl(batch, TRAIN_LR)
+        grads[dtype] = grad_vector(torch, trainer.model)
+    return ((grads["bf16"] - grads["f32"]).norm() / grads["f32"].norm()).item()
+
+
+def dp_step(torch, trainer, batch):
+    """One dropout-off step of ``trainer`` on ``batch`` with the
+    constant-initialised parameters made random: ``(loss, {name: grad or
+    None}, {name: parameter})`` on the CPU."""
+    from ser_tpu_torch.ops.layers import Dropout
+
+    randomize_constants(torch, [trainer.model], seed=1)
+    no_dropout(trainer.model, Dropout)
+    loss = trainer._train_step_impl(batch, TRAIN_LR).item()
+    named = dict(trainer.model.named_parameters())
+    return (loss, {n: None if p.grad is None else p.grad.detach().cpu() for n, p in named.items()},
+            {n: p.detach().cpu() for n, p in named.items()})
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_worker(out_dir):
+    """One of DP_WORKERS processes sharing the card over gloo (phase 14e):
+    its rows of the DP_CHECK_SHAPE batch, one dropout-off step, its loss,
+    reduced gradients and updated parameters written to ``out_dir``; then
+    the train CLI under ``--dp`` for one epoch in the same process group,
+    from ``out_dir``, and the kernels' launches of that run."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from ser_tpu_torch.data.loaders import EpochLoader
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.device import disable_tf32
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.parallel import initialize_distributed, world
+    from ser_tpu_torch.train import __main__ as train_cli
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    disable_tf32()
+    torch.cuda.set_device(0)  # NCCL refuses two ranks on one card; gloo shares it
+    torch.distributed.init_process_group("gloo", init_method="env://")
+    device = initialize_distributed("cuda")
+    rank, size = world()
+    L_c, B_c = DP_CHECK_SHAPE
+    batch = EpochLoader([], [], B_c, process_index=rank, process_count=size)._local_rows(
+        synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2))
+    trainer = ModelTrainer(device=device, seed=0, lr=TRAIN_LR, dp=True, res_csv_path=None)
+    loss, grads, params = dp_step(torch, trainer, batch)
+    np.savez(Path(out_dir) / f"rank{rank}.npz", loss=np.float64(loss),
+             **{f"grad/{n}": g.numpy() for n, g in grads.items() if g is not None},
+             **{f"param/{n}": p.numpy() for n, p in params.items()})
+    reset_launches()
+    run_quiet(in_dir, out_dir, train_cli.main, train_cli.parser_args(
+        ["--dp", "--synthetic", "--epoch", "1", "--batch_size", "16", "--num_workers", "0",
+         "--save_path", str(Path(out_dir) / "cli")]))
+    torch.cuda.synchronize()
+    np.savez(Path(out_dir) / f"cli{rank}.npz", **{k: np.int64(v) for k, v in LAUNCHES.items()})
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def bf16_dp_phase(torch, card, dev, logs):
+    """Phase 14 (the module docstring). Returns the bf16 rank-1 kernel's
+    record for the kernels line, its launches by path each counted from 0
+    just before its run, and the f32 kernels' launches by path in the
+    two-process train CLI."""
+    import numpy as np
+
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels import rank1 as rank1_kernel
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.parallel import initialize_distributed, world
+    from ser_tpu_torch.train import __main__ as train_cli
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    RANK1, RANK1_BF16 = rank1_kernel.NAME, rank1_kernel.NAME_BF16
+    bf = torch.bfloat16
+    launches = {}
+
+    # (a) the bf16 kernel: registers, against its plain version, against the
+    #     f32 kernel rounded once, its mask, device time beside the f32
+    #     kernel's, the plain version and SDPA in bf16
+    forms = ptxas_summary(logs[RANK1])
+    print("[bf16] " + "; ".join(forms))
+    check(len(forms) == 4 and sum("(bf16)" in f for f in forms) == 2
+          and all("spill stores 0 B, loads 0 B" in f for f in forms),
+          f"{RANK1}: the f32 and bf16 forms' registers and spills: {forms}")
+    seed = torch.tensor([20240611], dtype=torch.int32, device=dev)
+    names = ("z", "dx1", "dx2", "dwq", "dwk")
+    bf16_err = 0.0
+    for B in (80, 31, 1):
+        *ins, g_out = rank1_inputs(torch, B, dev, seed=B)
+        ins_bf, g_bf = [t.to(bf) for t in ins], g_out.to(bf)
+        for p in (0.0, 0.2):
+            got = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention, ins_bf, g_bf, seed, 3, p)
+            again = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention, ins_bf, g_bf, seed, 3, p)
+            want = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention_ref, ins_bf, g_bf,
+                                 seed, 3, p)
+            wide = rank1_fwd_bwd(torch, rank1_kernel.rank1_attention,
+                                 [t.float() for t in ins_bf], g_bf.float(), seed, 3, p)
+            fracs = []
+            for name, a, b, c in zip(names, got, want, wide):
+                check(a.dtype == bf and torch.isfinite(a).all().item(),
+                      f"{RANK1_BF16} {name}: {a.dtype} or non-finite, B={B}")
+                a32, b32 = a.float(), b.float()
+                floor = BF16_ATOL * (b32.abs().max().item() if name in ("dwq", "dwk") else 1.0)
+                err = (a32 - b32).abs()
+                frac = (err / (BF16_RTOL * b32.abs() + floor)).max().item()
+                bf16_err = max(bf16_err, err.max().item())
+                fracs.append(f"{name} {frac:.3f}")
+                check(frac <= 1.0, f"{RANK1_BF16} {name} disagrees with its plain version, "
+                      f"B={B}, p={p}")
+                check(torch.equal(a, c.to(bf)), f"{RANK1_BF16} {name} is not the f32 kernel's "
+                      f"on the widened inputs rounded once, B={B}, p={p}")
+            bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"[bf16] {RANK1_BF16} [2, {B}, 128] p={p}: fraction of the tolerance "
+                  f"{', '.join(fracs)}; every output the f32 kernel's rounded once; two runs "
+                  f"bit-equal: {bit_equal}")
+            check(bit_equal, f"two {RANK1_BF16} runs differ, B={B}, p={p}")
+    # the mask: with wk = 0 every e is 1, and with x2 = 1 a row's z is its
+    # kept count over (1 - p) D; the two forms' counts row by row
+    counts = {}
+    x1 = torch.randn(2, TRAIN_B, 128, device=dev)
+    for dtype in (torch.float32, bf):
+        z = rank1_kernel.rank1_attention(
+            x1.to(dtype), torch.ones(2, TRAIN_B, 128, device=dev, dtype=dtype),
+            torch.ones(2, 128, device=dev, dtype=dtype),
+            torch.zeros(2, 128, device=dev, dtype=dtype), seed, 0, 0.2)
+        counts[dtype] = (z.float() * 0.8 * 128).round()
+    plain_kept = int(rank1_kernel.keep_mask(seed, 0, TRAIN_B, 0.2).sum().item())
+    print(f"[bf16] {RANK1_BF16} mask: kept {int(counts[bf].sum().item())} of "
+          f"{2 * TRAIN_B * 128 * 128} draws, f32 kernel {int(counts[torch.float32].sum().item())}, "
+          f"plain mask {plain_kept}; every row's count the f32 kernel's: "
+          f"{torch.equal(counts[bf], counts[torch.float32])}")
+    check(torch.equal(counts[bf], counts[torch.float32])
+          and int(counts[bf].sum().item()) == plain_kept,
+          f"{RANK1_BF16}: its mask is not the f32 kernel's")
+
+    *ins, g_out = rank1_inputs(torch, TRAIN_B, dev, seed=5)
+    device_ms = {}
+    for dtype in (torch.float32, bf, bf, torch.float32):  # in turns
+        xs, g = [t.to(dtype) for t in ins], g_out.to(dtype)
+        k = rank1_kernel.Rank1Kernel(xs[2], xs[3], seed, 0.2)
+        pair = (cuda_graph_ms(torch, lambda: k.forward(xs[0], xs[1], 3))
+                + cuda_graph_ms(torch, lambda: k.backward(xs[0], xs[1], 3, g)))
+        device_ms.setdefault(dtype, []).append(pair)
+    xs, g = [t.to(bf) for t in ins], g_out.to(bf)
+    k = rank1_kernel.Rank1Kernel(xs[2], xs[3], seed, 0.2)
+    bf16_ms = (cuda_ms(torch, lambda: k.forward(xs[0], xs[1], 3))
+               + cuda_ms(torch, lambda: k.backward(xs[0], xs[1], 3, g)))
+
+    def plain_pair():
+        leaves = [t.clone().requires_grad_() for t in xs]
+        torch.autograd.grad(rank1_kernel.rank1_attention_ref(*leaves, seed, 3, 0.2),
+                            leaves, g)
+
+    bf16_plain_ms = cuda_ms(torch, plain_pair)
+    qkv = [t.detach().clone().requires_grad_() for t in rank1_sdpa_qkv(torch, *xs)]
+    gz = torch.nn.functional.pad(g[..., None], (0, 7))
+    bf16_sdpa_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        torch.nn.functional.scaled_dot_product_attention(*qkv, dropout_p=0.2, scale=1.0),
+        qkv, gz))
+    rb16 = rank1_bound(TRAIN_B, itemsize=2)
+    print(f"[time] {card} | {RANK1_BF16} [2, {TRAIN_B}, 128] p=0.2: forward and backward "
+          f"{bf16_ms:.4f} ms a wrapper pair, device time (CUDA graph) bf16 "
+          f"{device_ms[bf]} ms, f32 {device_ms[torch.float32]} ms in turns (f32, bf16, bf16, "
+          f"f32); plain bf16 form forward and autograd backward {bf16_plain_ms:.4f}; "
+          f"F.scaled_dot_product_attention bf16 forward and backward {bf16_sdpa_ms:.4f}; "
+          f"bound {rb16['both'][0]:.5f} ({rb16['both'][2]})")
+    del ins, g_out, xs, g, qkv, k
+
+    # (b) onlysp's bf16 step at [110, 80] in turns with the f32 step; one
+    #     bf16 step of each variant, DialogueRNN and BiLSTM
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    trainers = {d: ModelTrainer(seed=0, lr=TRAIN_LR, compute_dtype=d) for d in ("f32", "bf16")}
+    for t in trainers.values():
+        t._train_step_impl(train_batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    reset_launches()
+    trainers["bf16"]._train_step_impl(train_batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    step_launches = dict(LAUNCHES)
+    what = f"MARN1_onlysp bf16 train step [{TRAIN_L}, {TRAIN_B}]"
+    launches[what] = step_launches.get(RANK1_BF16, 0)
+    check(step_launches == {RANK1_BF16: 2 * TRAIN_L},
+          f"{what} launched {step_launches}, want {RANK1_BF16} {2 * TRAIN_L}")
+    master = {p.dtype for p in trainers["bf16"].model.parameters()} | {
+        v.dtype for s in trainers["bf16"].optimizer.state.values() for v in s.values()
+        if v.is_floating_point()} | {p.grad.dtype for p in trainers["bf16"].model.parameters()
+                                     if p.grad is not None}
+    check(master == {torch.float32}, f"bf16 step: master state in {master}")
+    step_ms, peak, rise, prof = {}, {}, {}, {}
+    for d in ("f32", "bf16", "bf16", "f32"):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        step_ms.setdefault(d, []).append(cuda_ms(
+            torch, lambda: trainers[d]._train_step_impl(train_batch, TRAIN_LR),
+            warmup=0, iters=5))
+        peak[d] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rise[d] = peak[d] - held / 2 ** 30
+    for d in ("f32", "bf16"):  # one step of each under the profiler
+        wall, _, events = device_profile(
+            torch, lambda: trainers[d]._train_step_impl(train_batch, TRAIN_LR), 1)
+        prof[d] = (wall, *kernel_split(events, 1))
+    print(f"[time] {card} | onlysp train step [{TRAIN_L}, {TRAIN_B}] (median of 5, in turns "
+          f"f32, bf16, bf16, f32): bf16 {step_ms['bf16']} ms, peak {peak['bf16']:.4f} GiB "
+          f"({rise['bf16']:.4f} above what was held before the step); f32 {step_ms['f32']} ms, "
+          f"peak {peak['f32']:.4f} GiB ({rise['f32']:.4f} above); {RANK1_BF16} launches a "
+          f"step {step_launches[RANK1_BF16]}; master parameters, gradients and Adam state f32")
+    print(f"[profile] {card} | onlysp train step [{TRAIN_L}, {TRAIN_B}], one step each: " + "; ".join(
+        f"{d} wall {w:.2f} ms, {n:.0f} kernel launches, device busy {b:.3f} ms (idle "
+        f"{100 * (1 - b / w):.1f}%), the rank-1 kernel {r:.4f} ms"
+        for d, (w, n, b, r) in prof.items()))
+    del trainers
+    L_c, B_c = DP_CHECK_SHAPE
+    check_batch = synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2)
+    for name in VARIANTS + ("DialogueRNN", "BiLSTM"):
+        trainer = ModelTrainer(model=name, seed=0, lr=TRAIN_LR, compute_dtype="bf16")
+        reset_launches()
+        loss = trainer._train_step_impl(check_batch, TRAIN_LR).item()
+        torch.cuda.synchronize()
+        got = dict(LAUNCHES)
+        want = ({RANK1_BF16: 2 * L_c - (name in Z_NOT_IN_OUTPUT)} if name in VARIANTS else {})
+        if name in VARIANTS:
+            launches[f"{name} bf16 train step [{L_c}, {B_c}]"] = got.get(RANK1_BF16, 0)
+        print(f"[bf16] {name} bf16 train step [{L_c}, {B_c}]: loss {loss:.6f}, launches {got}")
+        check(math.isfinite(loss) and got == want,
+              f"{name} bf16 step: loss {loss}, launches {got}, want {want}")
+        del trainer
+
+    # (c) the bf16-against-f32 gradient distance at [9, 3], card and CPU
+    dist_batch = synthetic_batch(L=BF16_DIST_SHAPE[0], B=BF16_DIST_SHAPE[1], seed=0)
+    dist = {(init, d): bf16_distance(torch, d, dist_batch, init == "constants random")
+            for init in ("reference", "constants random") for d in ("cpu", "cuda")}
+    print(f"[bf16] onlysp bf16-against-f32 gradient distance at {list(BF16_DIST_SHAPE)}, "
+          "‖g_bf16 - g_f32‖ / ‖g_f32‖: " + ", ".join(
+              f"{init} init card {dist[init, 'cuda']:.4f} CPU {dist[init, 'cpu']:.4f}"
+              for init in ("reference", "constants random")))
+    check(dist["constants random", "cuda"] <= 1.5 * dist["constants random", "cpu"] + 0.02,
+          "the card's bf16 step lies further from its f32 step than the CPU's allows")
+
+    # (d) the train CLI under --compute_dtype bf16
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        exp = Path(tmp) / "exp"
+        reset_launches()
+        t0 = time.perf_counter()
+        run_quiet(in_dir, tmp, train_cli.main, train_cli.parser_args(
+            ["--synthetic", "--epoch", "2", "--batch_size", "16", "--compute_dtype", "bf16",
+             "--save_path", str(exp)]))
+        torch.cuda.synchronize()
+        cli_launches = dict(LAUNCHES)
+        what = "train CLI --compute_dtype bf16, 2 epochs"
+        launches[what] = cli_launches.get(RANK1_BF16, 0)
+        lines = score_lines(exp / "score.txt")
+        print(f"[cli] {what}: {time.perf_counter() - t0:.1f} s, launches {cli_launches}")
+        for line in lines:
+            print(f"[cli]   score.txt: {line}")
+        check(len(lines) == 2 and cli_launches.get(RANK1_BF16, 0) > 0
+              and cli_launches.get(NAME, 0) > 0 and RANK1 not in cli_launches,
+              f"{what}: score lines {len(lines)}, launches {cli_launches}")
+
+    # (e) --dp: one NCCL rank is the plain step, bit for bit (dropout on,
+    #     rank 0 keeps the seed's stream); two processes sharing the card
+    #     over gloo against the one-process step
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize_distributed("cuda")
+        backend = torch.distributed.get_backend()
+        plain, dp = (ModelTrainer(seed=0, lr=TRAIN_LR, dp=flag) for flag in (False, True))
+        check(dp.dp and world() == (0, 1) and not plain.dp, "the one-rank trainer is not dp")
+        losses = [t._train_step_impl(check_batch, TRAIN_LR) for t in (plain, dp)]
+        same = torch.equal(*losses) and all(
+            torch.equal(p, q) for p, q in zip(plain.model.parameters(), dp.model.parameters()))
+        print(f"[dp] one {backend} rank, [{L_c}, {B_c}] with dropout: loss {losses[1].item():.6f}, "
+              f"plain {losses[0].item():.6f}; loss and parameters bit-equal: {same}")
+        check(backend == "nccl" and same, "one NCCL rank's step is not the plain step")
+        del plain, dp
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    one = dp_step(torch, ModelTrainer(seed=0, lr=TRAIN_LR, res_csv_path=None), check_batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp_worker", tmp],
+            env=dict(os.environ, WORLD_SIZE=str(DP_WORKERS), RANK=str(r), LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=port),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WORKERS)]
+        t0 = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, out in zip(procs, outs):
+            check(p.returncode == 0, f"a --dp worker failed:\n{out[-3000:]}")
+        ranks = [state_arrays(np, Path(tmp) / f"rank{r}.npz") for r in range(DP_WORKERS)]
+        cli = [{k: int(v) for k, v in state_arrays(np, Path(tmp) / f"cli{r}.npz").items()}
+               for r in range(DP_WORKERS)]
+        lines = score_lines(Path(tmp) / "cli" / "score.txt")
+        blocks = (Path(tmp) / "cli" / "score.txt").read_text().count("Model: MARN1_onlysp")
+        res_rows = len((Path(tmp) / "res.csv").read_text().splitlines())
+    loss1, grads1, params1 = one
+    top = max(g.abs().max().item() for g in grads1.values() if g is not None)
+    worst, moved = 0.0, 0.0
+    for r in ranks:
+        got = {k[len("grad/"):]: torch.from_numpy(v) for k, v in r.items()
+               if k.startswith("grad/")}
+        check(set(got) == {n for n, g in grads1.items() if g is not None}
+              and len(grads1) - len(got) == ONLYSP_DEAD,
+              f"--dp: the live set {len(got)} of {len(grads1)}, want {ONLYSP_DEAD} dead")
+        for n, gr in got.items():
+            tol = GRAD_RTOL * grads1[n].abs().max().item() + GRAD_FLOOR * top
+            worst = max(worst, (gr - grads1[n]).abs().max().item() / tol)
+        moved = max(moved, max((torch.from_numpy(r[f"param/{n}"]) - p).abs().max().item()
+                               for n, p in params1.items()))
+    loss_rel = max(abs(float(r["loss"]) - loss1) / abs(loss1) for r in ranks)
+    equal = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0] if
+                k.startswith("param/"))
+    print(f"[dp] {DP_WORKERS} processes sharing the card over gloo, [{L_c}, {B_c}] dropout off "
+          f"({time.perf_counter() - t0:.1f} s): |loss| rel {loss_rel:.3e} of the one-process "
+          f"step's, gradients {worst:.3f} of the tolerance, parameters bit-equal across "
+          f"processes: {equal}, max |param - one process| after Adam {moved / TRAIN_LR:.3f} lr")
+    check(loss_rel <= TRAIN_LOSS_RTOL and worst <= 1.0 and equal and moved <= 2.05 * TRAIN_LR,
+          "--dp over two processes is not the one-process step")
+    what = f"train CLI --dp, {DP_WORKERS} processes over gloo, 1 epoch"
+    dp_launches = {name: {what: sum(c.get(name, 0) for c in cli)} for name in (RANK1, NAME)}
+    print(f"[cli] {what}: launches by process {cli}; score.txt blocks {blocks}, lines {lines}; "
+          f"res.csv {res_rows} lines")
+    check(len(lines) == 1 and blocks == 1 and res_rows > 1
+          and all(c.get(RANK1, 0) > 0 and c.get(NAME, 0) > 0 for c in cli),
+          f"{what}: score lines {lines}, blocks {blocks}, launches {cli}")
+
+    rb16 = rank1_bound(TRAIN_B, itemsize=2)
+    return {"name": RANK1_BF16, "route": "cuda",
+            "source": "ser_tpu_torch/csrc/rank1_attention.cu",
+            "replaces": "ser_tpu/ops/attention.py:41",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": bf16_err, "ms": bf16_ms, "plain_ms": bf16_plain_ms,
+            "bound_ms": rb16["both"][0], "bound_by": rb16["both"][1],
+            "library_ms": bf16_sdpa_ms, "device_ms": statistics.median(device_ms[bf]),
+            "f32_device_ms": statistics.median(device_ms[torch.float32])}, dp_launches
+
+
 def main() -> int:
     import torch
 
@@ -2996,13 +3424,20 @@ def main() -> int:
     zoo_launches = zoo_phase(torch, card, eval_batch)
     print(f"[zoo] phase 13 in {time.perf_counter() - t0:.1f} s; launches by path: "
           f"{zoo_launches}")
+
+    # 14. --compute_dtype bf16 through the bf16 rank-1 kernel, and --dp
+    t0 = time.perf_counter()
+    bf16_record, dp_launches = bf16_dp_phase(torch, card, dev, logs)
+    print(f"[bf16] phase 14 in {time.perf_counter() - t0:.1f} s; {bf16_record['name']} "
+          f"launches by path: {bf16_record['launches_by_path']}")
     meld_tmp.cleanup()
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
                      "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
-                      **variant_launches, **serve_launches[RANK1], **zoo_launches[RANK1]}
+                      **variant_launches, **serve_launches[RANK1], **zoo_launches[RANK1],
+                      **dp_launches[RANK1]}
     lsthm_launches = {"MARN1_onlysp Predictor, three requests": main_launches,
-                      **serve_launches[NAME], **zoo_launches[NAME]}
+                      **serve_launches[NAME], **zoo_launches[NAME], **dp_launches[NAME]}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
@@ -3029,7 +3464,7 @@ def main() -> int:
         "launches": sum(rank1_launches.values()), "launches_by_path": rank1_launches,
         "max_abs_err": rank1_err,
         "ms": rank1_ms, "plain_ms": r1_plain_ms, "bound_ms": rb["both"][0],
-        "bound_by": rb["both"][1], "library_ms": sdpa_pair_ms}]}))
+        "bound_by": rb["both"][1], "library_ms": sdpa_pair_ms}, bf16_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3037,4 +3472,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp_worker"]:  # phase 14e's processes
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

@@ -5,7 +5,9 @@
 // package runs as fused XLA under jax.checkpoint, and its analytic backward
 // _rank1_vjp_bwd. Not a Pallas kernel: the TPU path has none for training.
 // Both recurrence directions at once, as the train step runs them:
-//   x1 = c_l, x2 = c_a [2, B, D]; wq, wk [2, D]; D = 128; f32.
+//   x1 = c_l, x2 = c_a [2, B, D]; wq, wk [2, D]; D = 128; f32, or bf16 in a
+//   --compute_dtype bf16 train step (the JAX package's bf16 step runs
+//   _rank1_fused_impl on bf16 operands).
 // Forward, for direction d, row b, query i (over keys k):
 //   s = (x2 . wq) / sqrt(D), alpha = x1 * s,
 //   m = alpha > 0 ? alpha * max(wk) : alpha * min(wk)   (the exact row max),
@@ -79,7 +81,19 @@
 //   input are bit-equal.
 // No tensor cores: the reductions carry a [D, D] operand that a product would
 // round (the JAX package's note on _rank1_vjp_bwd).
+//
+// bf16. Both kernels are templates over the storage type T (float or
+// __nv_bfloat16). A bf16 input is widened to f32 at its global load; the
+// shared-memory tiles, ex2 and every sum stay f32, and z, dx1 and dx2 are
+// rounded once at their store (__float2bfloat16_rn). The dwq and dwk parts
+// stay f32 in the scratch, and the last block's in-order sum over b is
+// rounded once at its store. So the bf16 kernel computes the plain bf16
+// form of ops/kernels/rank1.py: the f32 function on the widened inputs, each
+// output rounded once. The hash does not read T: the bf16 kernel drops
+// exactly the entries the f32 kernel drops. A bf16 launch moves half the
+// bytes; the exps, which bound it, are the same.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,6 +130,16 @@ constexpr int BWD_LAYOUT =
 // after the ticket the last block stages SUM_CHUNK rows of both parts there
 constexpr int BWD_SMEM = BWD_LAYOUT > 2 * SUM_CHUNK * D * 4 ? BWD_LAYOUT
                                                             : 2 * SUM_CHUNK * D * 4;
+
+// a global element widened to f32, and an f32 value rounded once to T
+__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -196,10 +220,11 @@ struct TileIn {
   uint32_t* rpre_s;
 };
 
+template <typename T>
 __device__ __forceinline__ float load_tile(
-    const float* __restrict__ x1, const float* __restrict__ x2,
-    const float* __restrict__ wq, const float* __restrict__ wk,
-    const float* __restrict__ g, const int* __restrict__ seed, int step, int B,
+    const T* __restrict__ x1, const T* __restrict__ x2,
+    const T* __restrict__ wq, const T* __restrict__ wk,
+    const T* __restrict__ g, const int* __restrict__ seed, int step, int B,
     int b, int d, int r0, int rows, const TileIn& in) {
   __shared__ float part[3][D / 32];
   const int t = threadIdx.x, lane = t & 31;
@@ -207,10 +232,10 @@ __device__ __forceinline__ float load_tile(
   float x1t = 0.f, gt = 0.f;
   uint32_t rpre = 0;
   if (t < D) {
-    const float x2t = x2[row + t], wqt = wq[d * D + t], wkt = wk[d * D + t];
+    const float x2t = ld(x2, row + t), wqt = ld(wq, d * D + t), wkt = ld(wk, d * D + t);
     if (t < rows) {
-      x1t = x1[row + r0 + t];
-      if (in.g_s != nullptr) gt = g[row + r0 + t];
+      x1t = ld(x1, row + r0 + t);
+      if (in.g_s != nullptr) gt = ld(g, row + r0 + t);
       const uint32_t rkey = row_key(step_key(seed, step, d), b, r0 + t);
       rpre = rkey ^ (rkey >> 16);
     }
@@ -253,11 +278,12 @@ __device__ __forceinline__ float load_tile(
   return s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(FWD_THREADS) rank1_fwd_kernel(
-    const float* __restrict__ x1, const float* __restrict__ x2,
-    const float* __restrict__ wq, const float* __restrict__ wk,
+    const T* __restrict__ x1, const T* __restrict__ x2,
+    const T* __restrict__ wq, const T* __restrict__ wk,
     const int* __restrict__ seed, int step, int B, uint32_t threshold,
-    float keep, float* __restrict__ z) {
+    float keep, T* __restrict__ z) {
   constexpr int ROWS = FWD_THREADS / 32 * ROWS_PER_WARP;  // a quarter of the rows
   __shared__ float x2_s[D], wk_s[D], a2_s[ROWS], m2_s[ROWS];
   __shared__ uint32_t rpre_s[ROWS];
@@ -265,7 +291,7 @@ __global__ void __launch_bounds__(FWD_THREADS) rank1_fwd_kernel(
   const int d = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t row = ((size_t)d * B + b) * D;
-  load_tile(x1, x2, wq, wk, nullptr, seed, step, B, b, d, r0, ROWS,
+  load_tile<T>(x1, x2, wq, wk, nullptr, seed, step, B, b, d, r0, ROWS,
             {x2_s, wk_s, nullptr, a2_s, m2_s, nullptr, nullptr, nullptr, rpre_s});
 
   float wk_j[KEYS_PER_LANE], x2_j[KEYS_PER_LANE];
@@ -298,19 +324,20 @@ __global__ void __launch_bounds__(FWD_THREADS) rank1_fwd_kernel(
     const float den = warp_sum_scatter<2 * FWD_GROUP>(v, lane);
     const float num = __shfl_down_sync(FULL, den, SPREAD);
     if (lane % (2 * SPREAD) == 0)
-      z[row + r0 + warp * ROWS_PER_WARP + g0 + lane / (2 * SPREAD)] =
-          num * (1.f / keep) * __frcp_rn(den);
+      st(z, row + r0 + warp * ROWS_PER_WARP + g0 + lane / (2 * SPREAD),
+         num * (1.f / keep) * __frcp_rn(den));
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2) rank1_bwd_kernel(
-    const float* __restrict__ x1, const float* __restrict__ x2,
-    const float* __restrict__ wq, const float* __restrict__ wk,
+    const T* __restrict__ x1, const T* __restrict__ x2,
+    const T* __restrict__ wq, const T* __restrict__ wk,
     const int* __restrict__ seed, int step, int B, uint32_t threshold,
-    float keep, const float* __restrict__ g, float* __restrict__ dx1,
-    float* __restrict__ dx2, float* __restrict__ dwq_part,
+    float keep, const T* __restrict__ g, T* __restrict__ dx1,
+    T* __restrict__ dx2, float* __restrict__ dwq_part,
     float* __restrict__ dwk_part, int* __restrict__ ticket,
-    float* __restrict__ dwq, float* __restrict__ dwk) {
+    T* __restrict__ dwq, T* __restrict__ dwk) {
   extern __shared__ float4 smem4[];
   float* e_s = (float*)smem4;                                  // [D][D]
   uint32_t* keep_s = (uint32_t*)(e_s + D * D);                 // [4][D] ballots
@@ -379,7 +406,7 @@ __global__ void __launch_bounds__(THREADS, 2) rank1_bwd_kernel(
       const float gn = in.g_s[i] * rden;
       const float gd = -gn * (num * rkeep * rden);
       const float dalpha = gn * (sa2 * rkeep) + gd * sa3;
-      dx1[row + i] = dalpha * s;
+      st(dx1, row + i, dalpha * s);
       gn_s[i] = gn;
       gna_s[i] = gn * in.alpha_s[i];
       gda_s[i] = gd * in.alpha_s[i];
@@ -430,7 +457,7 @@ __global__ void __launch_bounds__(THREADS, 2) rank1_bwd_kernel(
       b3 += col_s[(q * 3 + 2) * D + t];
     }
     const float ds = ds_s, x2t = in.x2_s[t];
-    dx2[row + t] = b1 * rkeep + ds * (SCALE * in.wq_s[t]);
+    st(dx2, row + t, b1 * rkeep + ds * (SCALE * in.wq_s[t]));
     dwk_part[row + t] = x2t * (b2 * rkeep) + b3;
     dwq_part[row + t] = SCALE * (ds * x2t);
     __threadfence();  // the parts are seen before the ticket
@@ -475,19 +502,42 @@ __global__ void __launch_bounds__(THREADS, 2) rank1_bwd_kernel(
       for (int bb = 0; bb < n4 * 4 / D; ++bb) acc += stage[bb * D + k];
     }
   }
-  if (t < 2 * D) (qty == 0 ? dwq : dwk)[d * D + k] = acc;
+  if (t < 2 * D) st(qty == 0 ? dwq : dwk, d * D + k, acc);
 }
 
-// the backward's shared memory above 48 KB, allowed once per device
+// the backward's shared memory above 48 KB, allowed once per device and type
+template <typename T>
 cudaError_t allow_bwd_smem() {
   static bool done[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(rank1_bwd_kernel,
+  err = cudaFuncSetAttribute(rank1_bwd_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
+}
+
+template <typename T>
+int launch_fwd(const T* x1, const T* x2, const T* wq, const T* wk, const int* seed,
+               int step, int B, unsigned int threshold, float keep, T* z,
+               void* stream) {
+  rank1_fwd_kernel<T><<<dim3(FWD_SPLIT * B, 2), FWD_THREADS, 0, (cudaStream_t)stream>>>(
+      x1, x2, wq, wk, seed, step, B, threshold, keep, z);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const T* x1, const T* x2, const T* wq, const T* wk, const int* seed,
+               int step, int B, unsigned int threshold, float keep, const T* g,
+               T* dx1, T* dx2, float* part, int* ticket, T* dwq, T* dwk,
+               void* stream) {
+  cudaError_t err = allow_bwd_smem<T>();
+  if (err != cudaSuccess) return (int)err;
+  rank1_bwd_kernel<T><<<dim3(B, 2), THREADS, BWD_SMEM, (cudaStream_t)stream>>>(
+      x1, x2, wq, wk, seed, step, B, threshold, keep, g, dx1, dx2, part,
+      part + (size_t)2 * B * D, ticket, dwq, dwk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -498,9 +548,16 @@ extern "C" int rank1_attention_fwd(const float* x1, const float* x2,
                                    const int* seed, int step, int B,
                                    unsigned int threshold, float keep, float* z,
                                    void* stream) {
-  rank1_fwd_kernel<<<dim3(FWD_SPLIT * B, 2), FWD_THREADS, 0, (cudaStream_t)stream>>>(
-      x1, x2, wq, wk, seed, step, B, threshold, keep, z);
-  return (int)cudaGetLastError();
+  return launch_fwd(x1, x2, wq, wk, seed, step, B, threshold, keep, z, stream);
+}
+
+// The same on bf16 x1, x2, wq, wk; z bf16.
+extern "C" int rank1_attention_fwd_bf16(const __nv_bfloat16* x1, const __nv_bfloat16* x2,
+                                        const __nv_bfloat16* wq, const __nv_bfloat16* wk,
+                                        const int* seed, int step, int B,
+                                        unsigned int threshold, float keep,
+                                        __nv_bfloat16* z, void* stream) {
+  return launch_fwd(x1, x2, wq, wk, seed, step, B, threshold, keep, z, stream);
 }
 
 // dx1, dx2 [2, B, D] and dwq, dwk [2, D] from the output gradient g [2, B, D],
@@ -514,27 +571,36 @@ extern "C" int rank1_attention_bwd(const float* x1, const float* x2,
                                    const float* g, float* dx1, float* dx2,
                                    float* part, int* ticket, float* dwq,
                                    float* dwk, void* stream) {
-  cudaError_t err = allow_bwd_smem();
-  if (err != cudaSuccess) return (int)err;
-  rank1_bwd_kernel<<<dim3(B, 2), THREADS, BWD_SMEM, (cudaStream_t)stream>>>(
-      x1, x2, wq, wk, seed, step, B, threshold, keep, g, dx1, dx2, part,
-      part + (size_t)2 * B * D, ticket, dwq, dwk);
-  return (int)cudaGetLastError();
+  return launch_bwd(x1, x2, wq, wk, seed, step, B, threshold, keep, g, dx1, dx2,
+                    part, ticket, dwq, dwk, stream);
+}
+
+// The same on bf16 inputs and g; dx1, dx2, dwq, dwk bf16, part f32.
+extern "C" int rank1_attention_bwd_bf16(const __nv_bfloat16* x1, const __nv_bfloat16* x2,
+                                        const __nv_bfloat16* wq, const __nv_bfloat16* wk,
+                                        const int* seed, int step, int B,
+                                        unsigned int threshold, float keep,
+                                        const __nv_bfloat16* g, __nv_bfloat16* dx1,
+                                        __nv_bfloat16* dx2, float* part, int* ticket,
+                                        __nv_bfloat16* dwq, __nv_bfloat16* dwk,
+                                        void* stream) {
+  return launch_bwd(x1, x2, wq, wk, seed, step, B, threshold, keep, g, dx1, dx2,
+                    part, ticket, dwq, dwk, stream);
 }
 
 // out[0..5]: the forward's threads a block and blocks a (row, direction),
 // the backward's threads a block and dynamic shared memory in bytes, and the
 // blocks an SM holds of the forward and of the backward.
 extern "C" int rank1_attention_occupancy(int* out) {
-  cudaError_t err = allow_bwd_smem();
+  cudaError_t err = allow_bwd_smem<float>();
   if (err != cudaSuccess) return (int)err;
   out[0] = FWD_THREADS;
   out[1] = FWD_SPLIT;
   out[2] = THREADS;
   out[3] = BWD_SMEM;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], rank1_fwd_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], rank1_fwd_kernel<float>,
                                                       FWD_THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[5], rank1_bwd_kernel, THREADS, BWD_SMEM);
+      &out[5], rank1_bwd_kernel<float>, THREADS, BWD_SMEM);
 }

@@ -110,10 +110,16 @@ def fused_directions(cell_f, cell_b, inputs_f, inputs_b, step, init,
             seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                  device=generator.device, dtype=torch.int32)
             p, drop = attn_dropout, partial(dropout, p=dropout_rate, generator=generator)
-        # wq, wk, seed, p checked once; the kernel takes f32, so under bf16
-        # autocast (the serving artifacts' bf16 and int8) its inputs widen here
-        kernel = rank1_bind(wq.float(), wk.float(), seed, p)
-        attend = lambda x1, x2, t: kernel(x1.float(), x2.float(), t)  # noqa: E731
+        if generator is None:
+            # wq, wk, seed, p checked once; the eval recurrence runs the f32
+            # form, so under bf16 autocast (the serving artifacts' bf16 and
+            # int8) its inputs widen here
+            kernel = rank1_bind(wq.float(), wk.float(), seed, p)
+            attend = lambda x1, x2, t: kernel(x1.float(), x2.float(), t)  # noqa: E731
+        else:
+            # a train step's dtype picks the kernel's form: f32, or bf16 in a
+            # --compute_dtype bf16 step; nothing widens here
+            attend = rank1_bind(wq, wk, seed, p)
     T, _, B = seqs[0].shape[:3]
     P = inputs_f[-1].shape[-1]  # every cell takes qmask last
     carry = tuple(seqs[0].new_zeros((2,) + s) for s in init(B, P))

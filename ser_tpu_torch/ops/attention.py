@@ -43,8 +43,16 @@ def rank1_cross_attention_train(x1: torch.Tensor, x2: torch.Tensor,
     ``stop_gradient``: the shift cancels in exact arithmetic, not in floats.
 
     x1, x2 ``[..., B, D]``; wq, wk ``[..., D]``; ``keep`` a boolean mask
-    ``[..., B, D, D]`` (i, k) or None for no dropout. Returns ``[..., B, D]``.
+    ``[..., B, D, D]`` (i, k) or None for no dropout. Returns ``[..., B, D]``
+    in x1's dtype. bf16 inputs (a ``--compute_dtype bf16`` step) are widened
+    to f32, the function is computed in f32 and z is rounded to bf16 once:
+    the port's definition of the bf16 step's rank-1 attention, which the
+    bf16 CUDA kernel computes. Its ``[B, D, D]`` contractions stay f32, as
+    the JAX package keeps its backward's (``_rank1_vjp_bwd``).
     """
+    out_dtype = x1.dtype
+    wide = torch.promote_types(out_dtype, torch.float32)  # f64 stays f64
+    x1, x2, wq, wk = (t.to(wide) for t in (x1, x2, wq, wk))
     D = x1.shape[-1]
     wq, wk = wq[..., None, :], wk[..., None, :]
     s = (x2 * wq).sum(-1, keepdim=True) * (1.0 / D ** 0.5)
@@ -54,7 +62,7 @@ def rank1_cross_attention_train(x1: torch.Tensor, x2: torch.Tensor,
     e = torch.exp(alpha[..., :, None] * wk[..., None, :] - m[..., None])
     den = e.sum(-1)
     u = e if keep is None else torch.where(keep, e / (1.0 - p), 0.0)
-    return (u * x2[..., None, :]).sum(-1) / den
+    return ((u * x2[..., None, :]).sum(-1) / den).to(out_dtype)
 
 
 class Rank1Weights(nn.Module):

@@ -6,13 +6,18 @@ Counterpart of ``ser_tpu/ops/attention.py::_rank1_fused_impl`` (fused XLA
 under ``jax.checkpoint`` in the JAX package) and its analytic backward
 ``_rank1_vjp_bwd``, for both recurrence directions at once::
 
-    x1 = c_l, x2 = c_a   [2, B, D] f32, D = 128
-    wq, wk               [2, D] f32
+    x1 = c_l, x2 = c_a   [2, B, D] f32 or bf16, D = 128
+    wq, wk               [2, D], of x1's dtype
     seed                 [1] int32 on the same device; step an int; p a float
-    returns z            [2, B, D]
+    returns z            [2, B, D], of x1's dtype
 
 The kernel is ``csrc/rank1_attention.cu``, one launch each way; its source
-note gives the design and what bounds it. ``bind`` checks wq, wk, the seed
+note gives the design and what bounds it. It is built for f32 and for bf16
+(a ``--compute_dtype bf16`` train step), each counted under its own name in
+``LAUNCHES`` (``NAME``, ``NAME_BF16``); the bf16 form widens its inputs to
+f32, computes as the f32 one and rounds each output once, as the plain bf16
+form (``ops.attention.rank1_cross_attention_train``) does. Any other dtype,
+or dtypes that differ between the tensors, raises. ``bind`` checks wq, wk, the seed
 and p once for a whole train recurrence (``Rank1Kernel``), so a step checks
 only x1 and x2. Its forward keeps only x1, x2, wq, wk and the seed: the
 backward recomputes ``e`` and regenerates the dropout mask, so no
@@ -33,6 +38,9 @@ from ser_tpu_torch.ops.attention import rank1_cross_attention_train
 from ser_tpu_torch.ops.kernels import LAUNCHES
 
 NAME = "rank1_attention"
+NAME_BF16 = "rank1_attention_bf16"
+# dtype -> (launch counter, C symbol suffix)
+_FORMS = {torch.float32: (NAME, ""), torch.bfloat16: (NAME_BF16, "_bf16")}
 D = 128
 FMIX_M1 = 0x85EBCA6B
 FMIX_M2 = 0xC2B2AE35
@@ -85,7 +93,8 @@ def keep_mask(seed: torch.Tensor, step: int, B: int, p: float) -> torch.Tensor:
 
 def rank1_attention_ref(x1, x2, wq, wk, seed, step: int, p: float):
     """Plain PyTorch version, differentiable by autograd: the train form
-    ``ops.attention.rank1_cross_attention_train`` on the kernel's mask."""
+    ``ops.attention.rank1_cross_attention_train`` on the kernel's mask (for
+    bf16 inputs its bf16 form: f32 inside, z rounded once)."""
     keep = None if p == 0.0 else keep_mask(seed, step, x1.shape[1], p)
     return rank1_cross_attention_train(x1, x2, wq, wk, keep, p)
 
@@ -128,40 +137,51 @@ def _refuse(name, t, shape, dtype, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _takes(t, shape, device) -> bool:
-    return (t.dtype is torch.float32 and t.shape == shape and t.device == device
+def _takes(t, shape, device, dtype) -> bool:
+    return (t.dtype is dtype and t.shape == shape and t.device == device
             and t.is_contiguous())
 
 
+def _form_dtype(name, t) -> torch.dtype:
+    """``t``'s dtype if the kernel is built for it; raises ValueError else."""
+    if t.dtype not in _FORMS:
+        raise ValueError(f"{name}: {t.dtype}, the kernel takes torch.float32 or "
+                         "torch.bfloat16")
+    return t.dtype
+
+
 def check_consts(wq, wk, seed) -> None:
-    """wq, wk [2, D] f32 and the seed [1] int32, contiguous, on one device;
+    """wq, wk [2, D] of one dtype, f32 or bf16, and the seed [1] int32,
+    contiguous, on one device; raises ValueError on anything else."""
+    dtype = _form_dtype("wq", wq)
+    for name, t, shape, want in (("wq", wq, (2, D), dtype), ("wk", wk, (2, D), dtype),
+                                 ("seed", seed, (1,), torch.int32)):
+        _refuse(name, t, shape, want, wq.device)
+
+
+def check_inputs(x1, x2, g=None, device=None, dtype=None) -> int:
+    """B of ``x1``, which with x2 and g must be [2, B, D] of ``dtype`` (x1's
+    when None, f32 or bf16), contiguous and on ``device`` (x1's when None);
     raises ValueError on anything else."""
-    for name, t, shape, dtype in (("wq", wq, (2, D), torch.float32),
-                                  ("wk", wk, (2, D), torch.float32),
-                                  ("seed", seed, (1,), torch.int32)):
-        _refuse(name, t, shape, dtype, wq.device)
-
-
-def check_inputs(x1, x2, g=None, device=None) -> int:
-    """B of ``x1``, which with x2 and g must be [2, B, D] f32, contiguous and
-    on ``device`` (x1's when None); raises ValueError on anything else."""
     shape = x1.shape
     if not (len(shape) == 3 and shape[0] == 2 and shape[2] == D and shape[1] >= 1):
         raise ValueError(f"x1 must be [2, B>=1, {D}], got {tuple(shape)}")
     device = x1.device if device is None else device
+    dtype = _form_dtype("x1", x1) if dtype is None else dtype
     for name, t in (("x1", x1), ("x2", x2), ("g", g)):
-        if t is not None and not _takes(t, shape, device):
-            _refuse(name, t, shape, torch.float32, device)
+        if t is not None and not _takes(t, shape, device, dtype):
+            _refuse(name, t, shape, dtype, device)
     return shape[1]
 
 
-# the backward's scratch (dwq, dwk parts [2, 2, B, D]) and its two-int ticket,
-# made once per (device, B); the kernel leaves the ticket at 0
-_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# the backward's scratch (dwq, dwk parts [2, 2, B, D], f32 in both forms) and
+# its two-int ticket, made once per (device, B, dtype); the kernel leaves the
+# ticket at 0
+_SCRATCH: dict[tuple[int, int, torch.dtype], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _scratch(device: torch.device, B: int):
-    key = (device.index, B)
+def _scratch(device: torch.device, B: int, dtype: torch.dtype):
+    key = (device.index, B, dtype)
     if key not in _SCRATCH:
         _SCRATCH[key] = (torch.empty((2, 2, B, D), dtype=torch.float32, device=device),
                          torch.zeros(2, dtype=torch.int32, device=device))
@@ -170,11 +190,12 @@ def _scratch(device: torch.device, B: int):
 
 class Rank1Kernel:
     """The kernel bound to one train recurrence's wq, wk, seed and p, which
-    are checked once here; a call checks only x1 and x2 (and g in the
-    backward) and launches one kernel each way. Differentiable through
-    ``__call__``. The backward's scratch is shared by every binding of a
-    device and B, so two backwards of one shape must not run at once on
-    two streams."""
+    are checked once here; wq's dtype (f32 or bf16) picks the kernel's form,
+    and x1, x2 and g must have it too. A call checks only x1 and x2 (and g
+    in the backward) and launches one kernel each way. Differentiable
+    through ``__call__``. The backward's scratch is shared by every binding
+    of a device, B and dtype, so two backwards of one shape must not run at
+    once on two streams."""
 
     def __init__(self, wq, wk, seed, p: float):
         self.device = wq.device
@@ -182,17 +203,21 @@ class Rank1Kernel:
             raise ValueError(f"the rank-1 kernel takes CUDA tensors, wq is on {wq.device}")
         check_consts(wq, wk, seed)
         self.wq, self.wk, self.seed, self.p = wq, wk, seed, p
+        self.dtype = wq.dtype
+        self.name, suffix = _FORMS[self.dtype]
+        self._itemsize = wq.element_size()
         self.threshold, self.keep = keep_threshold(p), 1.0 - p
         self._consts = (wq.data_ptr(), wk.data_ptr(), seed.data_ptr())
         lib = _library()
-        self._fwd, self._bwd = lib.rank1_attention_fwd, lib.rank1_attention_bwd
+        self._fwd = getattr(lib, f"rank1_attention_fwd{suffix}")
+        self._bwd = getattr(lib, f"rank1_attention_bwd{suffix}")
         # the current stream as a raw handle (CUDA builds of torch), without
         # making a Stream object a call
         index, raw = self.device.index, torch._C._cuda_getCurrentRawStream
         self._stream = lambda: raw(index)
 
     def check(self, x1, x2, g=None) -> int:
-        return check_inputs(x1, x2, g, self.device)
+        return check_inputs(x1, x2, g, self.device, self.dtype)
 
     def _launch(self, fn, *args) -> None:
         if torch.cuda.current_device() == self.device.index:
@@ -202,7 +227,7 @@ class Rank1Kernel:
                 err = fn(*args, self._stream())
         if err != 0:
             raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
-        LAUNCHES[NAME] += 1
+        LAUNCHES[self.name] += 1
 
     def launch_fwd(self, x1, x2, step: int, z) -> None:
         """The forward into ``z``, with no checks: for inputs ``check`` took."""
@@ -219,19 +244,19 @@ class Rank1Kernel:
     def launch_bwd(self, x1, x2, step: int, g, dx, dw) -> None:
         """The backward into ``dx`` [2 (dx1, dx2), 2, B, D] and ``dw``
         [2 (dwq, dwk), 2, D], with no checks: for inputs ``check`` took."""
-        B = x1.shape[1]
-        part, ticket = _scratch(self.device, B)
+        B, size = x1.shape[1], self._itemsize
+        part, ticket = _scratch(self.device, B, self.dtype)
         dx_ptr, dw_ptr = dx.data_ptr(), dw.data_ptr()
         self._launch(self._bwd, x1.data_ptr(), x2.data_ptr(), *self._consts, step, B,
                      self.threshold, self.keep, g.data_ptr(), dx_ptr,
-                     dx_ptr + 2 * B * D * 4, part.data_ptr(), ticket.data_ptr(),
-                     dw_ptr, dw_ptr + 2 * D * 4)
+                     dx_ptr + 2 * B * D * size, part.data_ptr(), ticket.data_ptr(),
+                     dw_ptr, dw_ptr + 2 * D * size)
 
     def backward(self, x1, x2, step: int, g):
         """(dx1, dx2, dwq, dwk) from the output gradient g, one launch."""
         B = self.check(x1, x2, g)
-        dx = torch.empty((2, 2, B, D), dtype=torch.float32, device=self.device)
-        dw = torch.empty((2, 2, D), dtype=torch.float32, device=self.device)
+        dx = torch.empty((2, 2, B, D), dtype=self.dtype, device=self.device)
+        dw = torch.empty((2, 2, D), dtype=self.dtype, device=self.device)
         self.launch_bwd(x1, x2, step, g, dx, dw)
         return (*dx.unbind(0), *dw.unbind(0))
 
@@ -263,16 +288,17 @@ def _library() -> ctypes.CDLL:
 
     lib = load(NAME)
     # every pointer and the stream as c_void_p, or ctypes cuts them to 32 bits
-    lib.rank1_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                                 ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    lib.rank1_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                                 ctypes.c_float] + [ctypes.c_void_p] * 8)
+    for _, suffix in _FORMS.values():
+        getattr(lib, f"rank1_attention_fwd{suffix}").argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                                     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        getattr(lib, f"rank1_attention_bwd{suffix}").argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                                     ctypes.c_float] + [ctypes.c_void_p] * 8)
+        for way in ("fwd", "bwd"):
+            getattr(lib, f"rank1_attention_{way}{suffix}").restype = ctypes.c_int
     lib.rank1_attention_occupancy.argtypes = [ctypes.c_void_p]
-    for fn in (lib.rank1_attention_fwd, lib.rank1_attention_bwd,
-               lib.rank1_attention_occupancy):
-        fn.restype = ctypes.c_int
+    lib.rank1_attention_occupancy.restype = ctypes.c_int
     return lib
 
 

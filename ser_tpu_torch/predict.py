@@ -39,6 +39,7 @@ from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
 from ser_tpu_torch.models.registry import get_model_spec
 from ser_tpu_torch.ops.encoder_attention import check_kind
+from ser_tpu_torch.parallel import gather_rows
 from ser_tpu_torch.serving import Predictor
 from ser_tpu_torch.train.checkpoint import load_parameters
 from ser_tpu_torch.train.metrics import weighted_accuracy, weighted_f1
@@ -112,14 +113,20 @@ def eval_network(predictor: Predictor, loader, res_csv=None):
     """Predict every batch of ``loader``; write ``res_csv`` and return
     ``(weighted accuracy, weighted F1)`` over the unmasked utterances. The
     rows of ``res_csv`` are in the order of the model's outputs, as the
-    JAX package writes them (time-major for MARN_AT and MARN_ATV)."""
+    JAX package writes them (time-major for MARN_AT and MARN_ATV). Under
+    data parallelism (batches with ``label_global``) each process predicts
+    its rows, the predictions are gathered over the processes in rank order
+    and the metrics come from the global labels and mask."""
     rows = predictor.spec.rows
     preds, labels, masks = [], [], []
     for batch in loader:
         # predictions stay on the device until the loop ends
-        preds.append(rows(predictor.predict_batch(batch)[1]))
-        labels.append(rows(np.asarray(batch["label"])))
-        masks.append(rows(np.asarray(batch["umask"])))
+        grid = predictor.predict_batch(batch)[1]
+        if "label_global" in batch:
+            grid = gather_rows(grid)
+        preds.append(rows(grid))
+        labels.append(rows(np.asarray(batch.get("label_global", batch["label"]))))
+        masks.append(rows(np.asarray(batch.get("umask_global", batch["umask"]))))
     if not preds:
         return 0.0, 0.0
     preds = torch.cat(preds).cpu().numpy()

@@ -115,24 +115,31 @@ class Predictor:
         with torch.inference_mode():
             return self._answer(*(self._tensor(a) for a in (x, qmask, umask)))
 
-    def batch_inputs(self, batch):
+    def batch_inputs(self, batch, dtype=torch.float32):
         """``(x, qmask, umask)`` on the device from one collated batch
         (``data.collate``), numpy arrays. With an audio front end and a
         ``wav`` field, the waveforms (and ``wav_len``) are copied to the
         device and the front end computes ``acouf`` there; otherwise the
         batch's ``acouf`` is used. The text views are averaged on the host,
         so one of them is copied, not four (with the visual features for the
-        trimodal models). The caller picks the grad mode."""
-        textf = self._tensor(self.spec.text_features(batch))
+        trimodal models). The caller picks the grad mode.
+
+        ``dtype`` bf16 is the JAX bf16 step's cast batch: every float array
+        rounded to bf16, the waveforms too before the front end, which
+        computes in f32 and returns f32 features, so x, the text features
+        joined with them, is f32 there, as the JAX package's concatenation
+        promotes it."""
+        textf = self._tensor(self.spec.text_features(batch)).to(dtype)
         if self.frontend is not None and "wav" in batch:
             wav_len = batch.get("wav_len")
             acouf = self.frontend(
-                self._tensor(batch["wav"]),
+                self._tensor(batch["wav"]).to(dtype).float(),
                 None if wav_len is None else self._tensor(wav_len, torch.int32))
         else:
-            acouf = self._tensor(batch["acouf"])
+            acouf = self._tensor(batch["acouf"]).to(dtype)
         return (self.spec.join_inputs(textf, acouf),
-                self._tensor(batch["qmask"]), self._tensor(batch["umask"]))
+                self._tensor(batch["qmask"]).to(dtype),
+                self._tensor(batch["umask"]).to(dtype))
 
     def predict_batch(self, batch):
         """One collated batch, as ``batch_inputs`` reads it. Returns what

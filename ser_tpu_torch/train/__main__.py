@@ -8,6 +8,8 @@
     python -m ser_tpu_torch.train --eval True --initial_model CKPT.npz ...
     python -m ser_tpu_torch.train --synthetic --encoder_attention muse \
         --infonce 0.1 --debug_nans
+    python -m ser_tpu_torch.train --synthetic --compute_dtype bf16
+    torchrun --nproc_per_node=N -m ser_tpu_torch.train --synthetic --dp
 
 The flags are ``train.py``'s, plus ``--device`` (default ``cuda``; without
 CUDA it raises unless given ``--device cpu``). The epoch loop is the same:
@@ -22,8 +24,15 @@ generator, shuffles and F1 history. ``--encoder_attention`` swaps the
 encoders' MHA for a zoo op, ``--infonce W`` adds W times the InfoNCE term to
 the loss of the models with feature outputs, and ``--debug_nans`` raises
 ``FloatingPointError`` at the first NaN of a train step
-(``utils.profiling``). The flags the port cannot honour yet are refused with
-the ROADMAP item that queues them.
+(``utils.profiling``). ``--compute_dtype bf16`` trains in the JAX package's
+mixed precision (``ModelTrainer``'s ``compute_dtype``). ``--dp`` under
+``torchrun`` (one process a card; ``--device cpu`` processes over gloo)
+trains data parallel: each process loads its rows of every global batch,
+the batch size must divide over the processes, and only rank 0 writes
+``score.txt``, the checkpoints, ``res.csv``, ``parameters.csv`` and
+``--export_torch``; a single process prints that it runs single, as
+``train.py`` does. The flags the port cannot honour yet are refused with the
+ROADMAP item that queues them.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.device import resolve_device
 from ser_tpu_torch.models.registry import get_model_spec
 from ser_tpu_torch.ops.encoder_attention import check_kind
+from ser_tpu_torch.parallel import initialize_distributed, world
 from ser_tpu_torch.train.trainer import ModelTrainer
 from ser_tpu_torch.utils import profiling
 from ser_tpu_torch.utils.paths import init_args
@@ -51,8 +61,6 @@ from ser_tpu_torch.utils.seeding import seed_everything
 
 # flag -> (is it set to something the port lacks, why, ROADMAP item)
 _QUEUED = {
-    "compute_dtype": (lambda v: v != "f32", "bf16 mixed precision", "A.9"),
-    "dp": (lambda v: v, "data parallelism", "A.14"),
     "tp": (lambda v: v > 1, "tensor parallelism", "A.14"),
 }
 
@@ -84,9 +92,38 @@ def write_parameters_csv(path, columns: dict) -> None:
             w.writerow([cell(v) for v in row])
 
 
+def _data_parallel(args) -> tuple[dict, bool]:
+    """``--dp``: join the process group ``torchrun`` describes, as
+    ``train.py`` joins its processes. Returns the loaders' process
+    arguments and whether this process made the group."""
+    made = not torch.distributed.is_initialized()
+    args.device = str(initialize_distributed(args.device))
+    made = made and torch.distributed.is_initialized()
+    rank, n = world()
+    if n == 1:
+        print("--dp requested but only one device present; running single")
+        args.dp = False
+        return {}, made
+    if args.batch_size % n:
+        raise SystemExit(f"--dp needs batch_size divisible by {n} devices")
+    print(f"process {rank}/{n}: loading {args.batch_size // n} of "
+          f"{args.batch_size} dialogues per batch")
+    print(f"Data-parallel mesh over {n} devices")
+    return dict(process_index=rank, process_count=n), made
+
+
 def main(args):
     check_supported(args)
     resolve_device(args.device)  # before any file is written
+    proc, made_group = _data_parallel(args) if args.dp else ({}, False)
+    try:
+        _main(args, proc)
+    finally:
+        if made_group:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, proc):
     seed_everything(args.seed)
     init_args(args)
     if args.encoder_attention != "mha":
@@ -102,7 +139,7 @@ def main(args):
     if args.debug_nans:
         profiling.enable_nan_checks(True)
     try:
-        _run(args, use_frontend)
+        _run(args, use_frontend, proc)
     finally:
         # an in-process caller gets its own setting back
         profiling.enable_nan_checks(checks_were_on)
@@ -122,12 +159,14 @@ def _resolve_resume(resume, model_save_path):
     return path
 
 
-def _run(args, use_frontend):
+def _run(args, use_frontend, proc):
+    # only rank 0 writes the files the processes share
+    primary = proc.get("process_index", 0) == 0
     train_loader, valid_loader, test_loader = get_loaders(
         args.feature_path, dataset=args.dataset, valid=0.2,
         batch_size=args.batch_size, n_classes=args.n_classes, seed=args.seed,
         roberta_path=args.roberta_path,
-        wav_path="auto" if use_frontend else None)
+        wav_path="auto" if use_frontend else None, **proc)
     if args.num_workers > 0:
         train_loader = PrefetchLoader(train_loader)
         test_loader = PrefetchLoader(test_loader)
@@ -135,7 +174,7 @@ def _run(args, use_frontend):
         trainer = ModelTrainer(**vars(args))
         print("Model %s loaded from previous state!" % args.initial_model)
         trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
-        if args.export_torch:
+        if args.export_torch and primary:
             trainer.export_parameters_torch(args.export_torch)
             print(f"Exported reference-format checkpoint: {args.export_torch}")
         acc, fscore, _ = trainer.eval_network(test_loader)
@@ -160,7 +199,8 @@ def _run(args, use_frontend):
     w_dic = defaultdict(list, {k[len("fusion/"):]: list(v)
                                for k, v in trainer.history.items()
                                if k.startswith("fusion/")})
-    with open(args.score_save_path, "a+") as score_file:
+    with (open(args.score_save_path, "a+") if primary
+          else open(os.devnull, "w")) as score_file:
         score_file.write(f"Model: {args.model} \nDataset : {args.dataset}\n"
                          + "-" * 20 + "\n")
         for epoch in range(start_epoch + 1, args.epoch + 1):
@@ -168,7 +208,8 @@ def _run(args, use_frontend):
             lr, loss = trainer.train_network(epoch, train_loader)
             if epoch % args.test_step:
                 continue
-            trainer.save_parameters(args.model_save_path + "/model_%04d.model" % epoch)
+            if primary:
+                trainer.save_parameters(args.model_save_path + "/model_%04d.model" % epoch)
             acc, fscore, _ = trainer.eval_network(test_loader)
             for k, v in trainer.fusion_weights().items():
                 w_dic[k].append(v)
@@ -184,11 +225,12 @@ def _run(args, use_frontend):
                 trainer.save_train_state(
                     args.model_save_path + "/last.state", epoch,
                     {"fscores": fscores, **{f"fusion/{k}": v for k, v in w_dic.items()}})
-        if args.export_torch:
+        if args.export_torch and primary:
             trainer.export_parameters_torch(args.export_torch)
             print(f"Exported reference-format checkpoint: {args.export_torch}")
         score_file.write("\n")
-    write_parameters_csv("parameters.csv", w_dic)
+    if primary:
+        write_parameters_csv("parameters.csv", w_dic)
 
 
 def parser_args(argv=None):
@@ -216,7 +258,9 @@ def parser_args(argv=None):
                    help="kept for CLI parity; the device is --device")
     p.add_argument("--synthetic", action="store_true",
                    help="generate synthetic IEMOCAP-shaped data")
-    p.add_argument("--dp", action="store_true")
+    p.add_argument("--dp", action="store_true",
+                   help="data parallelism over the processes torchrun starts "
+                        "(one a card; gloo between --device cpu processes)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first NaN of a train step")
@@ -239,7 +283,9 @@ def parser_args(argv=None):
                    help="the encoders' self-attention: mha / external / self / "
                         "simplified_self / mobilevit_v2 / muse")
     p.add_argument("--compute_dtype", type=str, default="f32",
-                   choices=["f32", "bf16"])
+                   choices=["f32", "bf16"],
+                   help="bf16 = mixed precision: forward and backward in bf16, "
+                        "master parameters, Adam state and the loss in f32")
     p.add_argument("--audio_frontend", type=str, default="none",
                    help="none / mfcc: compute the 100-d audio slot on the "
                         "device from raw waveforms")

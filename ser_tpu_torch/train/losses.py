@@ -16,14 +16,18 @@ import torch
 
 def masked_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
                 kind: str = "CrossEntropy", weight: torch.Tensor | None = None,
-                outside_adds_zero: bool = False) -> torch.Tensor:
+                outside_adds_zero: bool = False,
+                denominator: torch.Tensor | float | None = None) -> torch.Tensor:
     """``MaskedLoss``: pred ``[N, C]`` log-probs (MARN1_newz's raw logits),
     target ``[N]`` int labels, mask ``[B, L]`` (or ``[N]``); kind
     ``CrossEntropy`` or ``NLL``; optional class weights ``[C]``. Returns the
     summed row loss over the mask's sum (over ``sum(weight[target] * mask)``
     with weights). A label at or past C raises, unless ``outside_adds_zero``:
     then its row adds 0, as the JAX package's all-zero one-hot of it does
-    (MARN1_newz has 6 logits whatever the dataset's class count)."""
+    (MARN1_newz has 6 logits whatever the dataset's class count).
+    ``denominator`` replaces that sum: under data parallelism a process's
+    rows are divided by the global batch's, so the processes' losses sum to
+    the global one."""
     mask_ = mask.reshape(-1, 1)
     masked_pred = pred * mask_
     if kind == "CrossEntropy":
@@ -39,9 +43,10 @@ def masked_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     else:
         rowloss = -logp.gather(1, target[:, None])[:, 0]
     if weight is None:
-        return rowloss.sum() / mask.sum()
+        return rowloss.sum() / (mask.sum() if denominator is None else denominator)
     w = weight[target]
-    return (rowloss * w).sum() / (w * mask_.reshape(-1)).sum()
+    return (rowloss * w).sum() / ((w * mask_.reshape(-1)).sum() if denominator is None
+                                  else denominator)
 
 
 def masked_nll_loss(pred, target, mask, weight=None):

@@ -774,3 +774,98 @@ def test_infonce_muse_train_step_card_matches_cpu(cuda):
             tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
             assert (q.grad.cpu() - p.grad).abs().max().item() <= tol, name
         assert (q.detach().cpu() - p.detach()).abs().max().item() <= 2.05e-3, name
+
+
+# --compute_dtype bf16: the bf16 form of the rank-1 kernel, and --dp
+
+@pytest.mark.parametrize("B", [1, 31, 80])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_rank1_bf16_kernel_matches_plain_version(cuda, B, p):
+    """bf16 in and out, counted under its own name: each output within one
+    bf16 rounding of the plain bf16 form (2^-7 of it plus 1e-5, dwq and dwk
+    1e-5 of their largest), and equal to the f32 kernel's on the widened
+    inputs rounded once, which also shows the two forms draw one mask."""
+    *ins, g = (t.bfloat16() for t in _rank1_inputs(B, cuda, seed=B))
+    seed = torch.tensor([123456789], dtype=torch.int32, device=cuda)
+    before = dict(LAUNCHES)
+    got = _rank1_run(trank1.rank1_attention, ins, g, seed, 5, p)
+    assert LAUNCHES[trank1.NAME_BF16] == before.get(trank1.NAME_BF16, 0) + 2
+    assert LAUNCHES[trank1.NAME] == before.get(trank1.NAME, 0)
+    want = _rank1_run(trank1.rank1_attention_ref, ins, g, seed, 5, p)
+    wide = _rank1_run(trank1.rank1_attention, [t.float() for t in ins], g.float(), seed, 5, p)
+    for name, a, b, c in zip(("z", "dx1", "dx2", "dwq", "dwk"), got, want, wide):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        a, b = a.float(), b.float()
+        floor = 1e-5 * (b.abs().max().item() if name in ("dwq", "dwk") else 1.0)
+        assert ((a - b).abs() <= floor + 2 ** -7 * b.abs()).all(), name
+        assert torch.equal(a, c.bfloat16().float()), name
+
+
+def test_rank1_bf16_kernel_bit_equal_runs_and_mixed_dtypes(cuda):
+    *ins, g = (t.bfloat16() for t in _rank1_inputs(80, cuda, seed=3))
+    seed = torch.tensor([42], dtype=torch.int32, device=cuda)
+    runs = [_rank1_run(trank1.rank1_attention, ins, g, seed, 9, 0.2) for _ in range(3)]
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+    with pytest.raises(ValueError, match="wk: torch.float32"):
+        trank1.bind(ins[2], ins[3].float(), seed, 0.2)
+    kernel = trank1.bind(ins[2], ins[3], seed, 0.2)
+    with pytest.raises(ValueError, match="x1: torch.float32"):
+        kernel(ins[0].float(), ins[1].float(), 0)
+    with pytest.raises(ValueError, match="g: torch.float32"):
+        kernel.backward(ins[0], ins[1], 0, g.float())
+
+
+@pytest.mark.parametrize("name", ["MARN1_onlysp", "MARN1_nsps"])
+def test_bf16_train_step_launches_the_bf16_kernel(cuda, name):
+    """A bf16 step at [16, 4]: 2T bf16 launches (2T - 1 for nsps), no f32
+    one, master state f32; its gradients lie as far from the f32 step's as
+    on the CPU (1.5x plus 0.02, the constant-initialised parameters made
+    random)."""
+    T = 16
+    batch = synthetic_batch(L=T, B=4, seed=2, min_len=6)
+    dist = {}
+    for d in ("cpu", "cuda"):
+        grads = {}
+        for dtype in ("f32", "bf16"):
+            t = ModelTrainer(device=d, model=name, seed=3, compute_dtype=dtype)
+            _randomize_constants([t.model])
+            _no_dropout(t.model)
+            before = dict(LAUNCHES)
+            t._train_step_impl(batch, 1e-3)
+            torch.cuda.synchronize()
+            if d == "cuda" and dtype == "bf16":
+                rise = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                        if v != before.get(k, 0)}
+                assert rise == {trank1.NAME_BF16: 2 * T - (name == "MARN1_nsps")}
+                assert all(p.dtype is torch.float32 and (p.grad is None or
+                                                         p.grad.dtype is torch.float32)
+                           for p in t.model.parameters())
+            grads[dtype] = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                                      .double().cpu().reshape(-1)
+                                      for p in t.model.parameters()])
+        dist[d] = ((grads["bf16"] - grads["f32"]).norm() / grads["f32"].norm()).item()
+    assert dist["cuda"] <= 1.5 * dist["cpu"] + 0.02, dist
+
+
+def test_dp_one_nccl_rank_is_the_plain_step(cuda, monkeypatch):
+    """``--dp`` as one NCCL rank: a step with dropout on is the plain step
+    bit for bit (rank 0 keeps the seed's dropout stream)."""
+    from ser_tpu_torch.parallel import initialize_distributed
+
+    port = str(np.random.default_rng().integers(20000, 40000))
+    for k, v in (("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0"),
+                 ("MASTER_ADDR", "localhost"), ("MASTER_PORT", port)):
+        monkeypatch.setenv(k, v)
+    initialize_distributed("cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        batch = synthetic_batch(L=16, B=4, seed=2, min_len=6)
+        plain, dp = (ModelTrainer(seed=3, dp=flag) for flag in (False, True))
+        assert dp.dp and not plain.dp
+        losses = [t._train_step_impl(batch, 1e-3) for t in (plain, dp)]
+        assert torch.equal(*losses)
+        for p, q in zip(plain.model.parameters(), dp.model.parameters()):
+            assert torch.equal(p, q)
+    finally:
+        torch.distributed.destroy_process_group()

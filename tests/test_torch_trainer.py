@@ -10,9 +10,11 @@ packages.
   predictions: ``res.csv`` equal byte for byte.
 - The train CLI writes ``score.txt``, the checkpoints and ``parameters.csv``;
   ``--eval True`` prints the JAX ``train.py``'s Acc/Fscore line on one
-  checkpoint; every flag the port cannot honour yet is refused with its
-  ROADMAP item (``tests/test_torch_resume.py`` holds the ones it took up:
-  ``--dataset MELD``, ``--save_state``, ``--resume``).
+  checkpoint; every flag the port cannot honour yet (``--tp``) is refused
+  with its ROADMAP item (``tests/test_torch_resume.py`` holds the ones it
+  took up: ``--dataset MELD``, ``--save_state``, ``--resume``;
+  ``tests/test_torch_mixed_precision.py`` and ``tests/test_torch_parallel.py``
+  ``--compute_dtype bf16`` and ``--dp``).
 """
 
 import numpy as np
@@ -233,9 +235,7 @@ def test_eval_cli_prints_the_jax_train_py_line(cli_run, feature_path, tmp_path,
     assert len(port) == 1 and port == jax
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--compute_dtype", "bf16"], "A.9"), (["--dp"], "A.14"),
-    (["--tp", "2"], "A.14")])
+@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "A.14")])
 def test_cli_refuses_what_the_port_lacks(flag, item, tmp_path):
     args = _cli_args(str(tmp_path), tmp_path / "exp", *flag)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
