@@ -229,6 +229,23 @@ Phases, each fatal on failure:
     processes; then ``python -m ser_tpu_torch.train --dp --synthetic --epoch
     1 --batch_size 16`` in both processes: one ``score.txt`` block and line,
     one ``res.csv``, the rank-1 and recurrence kernels launched in each.
+15. ``--tp`` (MARN1_onlysp, full width and depth), in processes sharing the
+    card over gloo (this script with ``--tp_worker``): two processes at
+    tp 2: (a) one [110, 80] step with dropout on, its loss and gathered
+    parameters bit-equal to the one-process step run here (held to the
+    train-step contract instead where two one-process steps on the card
+    differ), (d) each process's parameter and Adam-state bytes the rule's
+    (``parallel.shard_dims``), (c) eval of the synthetic test split at
+    batch 80 on the gathered weights (constants made random) with the
+    one-process Acc and F1 exactly, the recurrence kernel launched and held
+    against its plain version at the eval's shape, (e) ``python -m
+    ser_tpu_torch.train --tp 2 --synthetic --epoch 1 --batch_size 16``: one
+    ``score.txt`` block and line; then four processes at dp 2 x tp 2:
+    (b) a dropout-off step at [32, 16] against the one-process step at the
+    train-step contract (loss, gradients, the 38 dead, Adam's update) and
+    bit-equal to phase 14's two-process ``--dp`` step; the [110, 80] step
+    of both layouts timed (median of 3 a process) with each process's peak
+    memory and the rank-1 kernel's 220 launches a step.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2231,18 +2248,35 @@ def bf16_distance(torch, device, batch, constants_random):
     return ((grads["bf16"] - grads["f32"]).norm() / grads["f32"].norm()).item()
 
 
+def whole_grads(torch, trainer):
+    """``{name: gradient or None}`` of ``trainer``'s parameters, under
+    ``--tp`` the shards' gathered (every tp process must call it)."""
+    from ser_tpu_torch.parallel import gather_shards
+
+    named = {n: p.grad for n, p in trainer.model.named_parameters()}
+    live = [n for n in trainer.shards if named[n] is not None]
+    if live:
+        with torch.no_grad():
+            named.update(zip(live, gather_shards([named[n] for n in live],
+                                                 [trainer.shards[n] for n in live],
+                                                 trainer.grid)))
+    return named
+
+
 def dp_step(torch, trainer, batch):
     """One dropout-off step of ``trainer`` on ``batch`` with the
     constant-initialised parameters made random: ``(loss, {name: grad or
-    None}, {name: parameter})`` on the CPU."""
+    None}, {name: parameter})`` on the CPU, whole under ``--tp``."""
     from ser_tpu_torch.ops.layers import Dropout
 
-    randomize_constants(torch, [trainer.model], seed=1)
+    with trainer.whole_parameters(reshard=True):
+        randomize_constants(torch, [trainer.model], seed=1)
     no_dropout(trainer.model, Dropout)
     loss = trainer._train_step_impl(batch, TRAIN_LR).item()
-    named = dict(trainer.model.named_parameters())
-    return (loss, {n: None if p.grad is None else p.grad.detach().cpu() for n, p in named.items()},
-            {n: p.detach().cpu() for n, p in named.items()})
+    grads = whole_grads(torch, trainer)
+    params = trainer._whole_train_state()[0]
+    return (loss, {n: None if g is None else g.detach().cpu() for n, g in grads.items()},
+            {n: p.detach().cpu() for n, p in params.items()})
 
 
 def free_port():
@@ -2297,8 +2331,10 @@ def dp_worker(out_dir):
 def bf16_dp_phase(torch, card, dev, logs):
     """Phase 14 (the module docstring). Returns the bf16 rank-1 kernel's
     record for the kernels line, its launches by path each counted from 0
-    just before its run, and the f32 kernels' launches by path in the
-    two-process train CLI."""
+    just before its run, the f32 kernels' launches by path in the
+    two-process train CLI, and the DP_CHECK_SHAPE steps that phase 15 is
+    held to: the one-process step's ``(loss, grads, params)`` and the two
+    processes' saved arrays."""
     import numpy as np
 
     from ser_tpu_torch.data.synthetic import synthetic_batch
@@ -2584,7 +2620,308 @@ def bf16_dp_phase(torch, card, dev, logs):
             "max_abs_err": bf16_err, "ms": bf16_ms, "plain_ms": bf16_plain_ms,
             "bound_ms": rb16["both"][0], "bound_by": rb16["both"][1],
             "library_ms": bf16_sdpa_ms, "device_ms": statistics.median(device_ms[bf]),
-            "f32_device_ms": statistics.median(device_ms[torch.float32])}, dp_launches
+            "f32_device_ms": statistics.median(device_ms[torch.float32])}, dp_launches, (
+                one, ranks)
+
+
+TP_WAYS = 2  # phase 15: tp 2 alone, and the (2, 2) grid
+TP_GRID = (2, 2)
+
+
+def launch_workers(out_dir, mode, n, timeout=420):
+    """``n`` processes of this script as ``--tp_worker out_dir mode``,
+    sharing the card over gloo (NCCL refuses two ranks on one card), each
+    with its output in ``out_dir/<mode><rank>.log``; fails the run where one
+    fails, and leaves none running."""
+    port = str(free_port())
+    logs = [Path(out_dir) / f"{mode}{r}.log" for r in range(n)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp_worker", str(out_dir),
+                     mode],
+                    env=dict(os.environ, WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK="0",
+                             MASTER_ADDR="localhost", MASTER_PORT=port),
+                    stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"a --tp_worker {mode} process failed:\n"
+              f"{log.read_text()[-3000:]}")
+    return [json.loads((Path(out_dir) / f"{mode}{r}.json").read_text()) for r in range(n)]
+
+
+def tp_worker(out_dir, mode):
+    """One process of phase 15 (the module docstring): ``tp``, one of
+    TP_WAYS processes at tp 2, or ``grid``, one of the TP_GRID processes.
+    Writes its steps' arrays to ``out_dir/<mode><rank>.npz`` and its
+    numbers, with the kernels' launches of each path counted from 0 just
+    before it, to ``out_dir/<mode><rank>.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from ser_tpu_torch.data.loaders import EpochLoader, get_loaders
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.device import disable_tf32
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.lsthm import (lsthm_onlysp_recurrence_bidir,
+                                                 lsthm_onlysp_recurrence_bidir_ref)
+    from ser_tpu_torch.parallel import initialize_distributed, world
+    from ser_tpu_torch.train import __main__ as train_cli
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    disable_tf32()
+    torch.cuda.set_device(0)  # NCCL refuses two ranks on one card; gloo shares it
+    torch.distributed.init_process_group("gloo", init_method="env://")
+    device = initialize_distributed("cuda")
+    rank, size = world()
+    out = Path(out_dir)
+    result = {"rank": rank, "launches": {}}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        value = fn()
+        torch.cuda.synchronize()
+        result["launches"][what] = dict(LAUNCHES)
+        return value
+
+    def timed(what, trainer, batch):
+        torch.cuda.reset_peak_memory_stats()
+        result[f"{what}_ms"] = [cuda_ms(torch, lambda: trainer._train_step_impl(batch, TRAIN_LR),
+                                        warmup=0, iters=3)]
+        result[f"{what}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    if mode == "tp":
+        # (a) one step with dropout on; (d) what each process holds
+        trainer = ModelTrainer(device=device, seed=0, lr=TRAIN_LR, tp=TP_WAYS,
+                               res_csv_path=None)
+        loss = counted("step", lambda: trainer._train_step_impl(train_batch, TRAIN_LR))
+        params = trainer._whole_train_state()[0]
+        np.savez(out / f"tp{rank}.npz", loss=loss.cpu().numpy(),
+                 **{n: p.detach().cpu().numpy() for n, p in params.items()})
+        result["param_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in trainer.model.parameters())
+        result["adam_bytes"] = sum(v.numel() * v.element_size()
+                                   for state in trainer.optimizer.state.values()
+                                   for k, v in state.items() if k != "step")
+        timed("step", trainer, train_batch)
+        del trainer, params
+        # (c) eval on the gathered weights, then the recurrence kernel
+        #     against its plain version at the eval's shapes
+        ev = ModelTrainer(device=device, seed=0, tp=TP_WAYS, res_csv_path=None)
+        with ev.whole_parameters(reshard=True):
+            randomize_constants(torch, [ev.model], seed=1)
+        test_loader = get_loaders((out / "feats.txt").read_text(), valid=0.2,
+                                  batch_size=TRAIN_B, seed=PREDICT_SEED)[2]
+        result["acc"], result["f1"], _ = counted("eval", lambda: ev.eval_network(test_loader))
+        result["kernel_err"], result["kernel_twice_equal"] = 0.0, True
+        with ev.whole_parameters(), torch.inference_mode():
+            for batch in test_loader:
+                seqs, consts = ev.model.recurrence_inputs(*ev.predictor.batch_inputs(batch))[:2]
+                got = lsthm_onlysp_recurrence_bidir(seqs, consts)
+                again = lsthm_onlysp_recurrence_bidir(seqs, consts)
+                want = lsthm_onlysp_recurrence_bidir_ref(seqs, consts)
+                result["kernel_err"] = max(result["kernel_err"],
+                                           (got - want).abs().max().item())
+                result["kernel_twice_equal"] &= bool(torch.equal(got, again)
+                                                     and torch.isfinite(got).all().item())
+                result["kernel_shape"] = list(seqs[3].shape)
+        del ev
+        # (e) the train CLI
+        t0 = time.perf_counter()
+        counted("cli", lambda: run_quiet(in_dir, out, train_cli.main, train_cli.parser_args(
+            ["--tp", str(TP_WAYS), "--synthetic", "--epoch", "1", "--batch_size", "16",
+             "--num_workers", "0", "--save_path", str(out / "cli")])))
+        result["cli_s"] = time.perf_counter() - t0
+    else:
+        # (b) the DP_CHECK_SHAPE step, dropout off, then the [110, 80] step timed
+        dp_index, n_dp = rank // TP_WAYS, size // TP_WAYS
+        L_c, B_c = DP_CHECK_SHAPE
+        rows = lambda b, n: EpochLoader([], [], n, process_index=dp_index,  # noqa: E731
+                                        process_count=n_dp)._local_rows(b)
+        trainer = ModelTrainer(device=device, seed=0, lr=TRAIN_LR, tp=TP_WAYS,
+                               res_csv_path=None)
+        loss, grads, params = dp_step(torch, trainer, rows(
+            synthetic_batch(L=L_c, B=B_c, seed=2, min_len=L_c // 2), B_c))
+        np.savez(out / f"grid{rank}.npz", loss=np.float64(loss),
+                 **{f"grad/{n}": g.numpy() for n, g in grads.items() if g is not None},
+                 **{f"param/{n}": p.numpy() for n, p in params.items()})
+        del trainer
+        trainer = ModelTrainer(device=device, seed=0, lr=TRAIN_LR, tp=TP_WAYS,
+                               res_csv_path=None)
+        big = rows(train_batch, TRAIN_B)
+        counted("step", lambda: trainer._train_step_impl(big, TRAIN_LR))
+        timed("step", trainer, big)
+    (out / f"{mode}{rank}.json").write_text(json.dumps(result))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_phase(torch, card, dp_steps):
+    """Phase 15 (the module docstring): ``--tp`` in processes sharing the
+    card over gloo. ``dp_steps`` is phase 14's one-process and two-process
+    DP_CHECK_SHAPE steps. Returns the rank-1 and recurrence kernels'
+    launches by path, each counted from 0 just before its run."""
+    import numpy as np
+
+    from ser_tpu_torch.data.loaders import get_loaders
+    from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
+    from ser_tpu_torch.ops.kernels import rank1 as rank1_kernel
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.parallel import shard_dims
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    RANK1 = rank1_kernel.NAME
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        feats = generate_iemocap_pickles(str(Path(tmp) / "feats"), seed=PREDICT_SEED)
+        (Path(tmp) / "feats.txt").write_text(feats)
+        # the one-process references: (a)'s step with dropout on, twice;
+        # (d)'s rule from shard_dims; (c)'s eval
+        train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+        one = []
+        for _ in range(2):
+            trainer = ModelTrainer(seed=0, lr=TRAIN_LR, res_csv_path=None)
+            loss = trainer._train_step_impl(train_batch, TRAIN_LR).cpu().numpy()
+            one.append((loss, {n: p.detach().cpu().numpy()
+                               for n, p in trainer.model.named_parameters()}))
+        named = dict(trainer.model.named_parameters())
+        dims = shard_dims(trainer.model, TP_WAYS)
+        held = {n: p.numel() // TP_WAYS if dims[n] is not None else p.numel()
+                for n, p in named.items()}
+        rule_params = 4 * sum(held.values())
+        rule_adam = 4 * 2 * sum(held[n] for n, p in named.items() if p.grad is not None)
+        whole = 4 * sum(p.numel() for p in named.values())
+        del trainer, named
+        ev = ModelTrainer(seed=0, res_csv_path=None)
+        randomize_constants(torch, [ev.model], seed=1)
+        test_loader = get_loaders(feats, valid=0.2, batch_size=TRAIN_B, seed=PREDICT_SEED)[2]
+        acc1, f11, _ = ev.eval_network(test_loader)
+        del ev
+        torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        tp_res = launch_workers(tmp, "tp", TP_WAYS)
+        tp_s = time.perf_counter() - t0
+        tp_steps = [state_arrays(np, Path(tmp) / f"tp{r}.npz") for r in range(TP_WAYS)]
+        lines = score_lines(Path(tmp) / "cli" / "score.txt")
+        blocks = (Path(tmp) / "cli" / "score.txt").read_text().count("Model: MARN1_onlysp")
+        t0 = time.perf_counter()
+        grid_res = launch_workers(tmp, "grid", TP_GRID[0] * TP_GRID[1])
+        grid_s = time.perf_counter() - t0
+        grid_steps = [state_arrays(np, Path(tmp) / f"grid{r}.npz")
+                      for r in range(TP_GRID[0] * TP_GRID[1])]
+
+    # (a) tp 2 with dropout on against the one-process step
+    same = lambda a, b: a.shape == b.shape and np.array_equal(  # noqa: E731
+        a.view(np.uint32), b.view(np.uint32))
+    deterministic = same(one[0][0], one[1][0]) and all(
+        same(one[0][1][n], one[1][1][n]) for n in one[0][1])
+    loss1, params1 = one[0]
+    bit_equal = all(same(s["loss"], loss1) and all(same(s[n], p) for n, p in params1.items())
+                    for s in tp_steps)
+    loss_rel = max(abs(float(s["loss"]) - float(loss1)) / abs(float(loss1)) for s in tp_steps)
+    moved = max(np.abs(s[n] - p).max() for s in tp_steps for n, p in params1.items())
+    print(f"[tp] {TP_WAYS} processes sharing the card over gloo, tp={TP_WAYS}, MARN1_onlysp "
+          f"[{TRAIN_L}, {TRAIN_B}] with dropout ({tp_s:.1f} s with eval and the CLI): two "
+          f"one-process steps bit-equal: {deterministic}; the tp step's loss and gathered "
+          f"parameters bit-equal to the one-process step: {bit_equal} (|loss| rel "
+          f"{loss_rel:.3e}, max |param - one process| {moved / TRAIN_LR:.3f} lr)")
+    if deterministic:
+        check(bit_equal, "the tp step is not the one-process step bit for bit")
+    else:
+        check(loss_rel <= TRAIN_LOSS_RTOL and moved <= 2.05 * TRAIN_LR,
+              "the tp step is not the one-process step at the train-step contract")
+    # (d) what each process holds
+    for r in tp_res:
+        print(f"[tp] rank {r['rank']}: parameters {r['param_bytes']} B, Adam's moments "
+              f"{r['adam_bytes']} B; the rule's {rule_params} B and {rule_adam} B (whole "
+              f"parameters {whole} B)")
+        check((r["param_bytes"], r["adam_bytes"]) == (rule_params, rule_adam),
+              f"rank {r['rank']} holds {r['param_bytes']} B of parameters and "
+              f"{r['adam_bytes']} B of moments, the rule {rule_params} B and {rule_adam} B")
+    # (c) eval
+    print(f"[tp] eval of the synthetic test split at batch {TRAIN_B} on the gathered "
+          f"weights (constants made random): " + "; ".join(
+              f"rank {r['rank']} Acc {r['acc']} F1 {r['f1']}, {NAME} "
+              f"{r['launches']['eval'].get(NAME, 0)} launches" for r in tp_res)
+          + f"; one process Acc {acc1} F1 {f11}")
+    check(all((r["acc"], r["f1"]) == (acc1, f11) for r in tp_res),
+          "tp eval does not give the one-process Acc and F1")
+    kernel_err = max(r["kernel_err"] for r in tp_res)
+    print(f"[tp] {NAME} at the eval's shape {tp_res[0]['kernel_shape']} on the gathered "
+          f"weights: max|kernel - plain| {kernel_err:.3e}, two runs bit-equal and finite: "
+          f"{all(r['kernel_twice_equal'] for r in tp_res)}")
+    check(kernel_err <= 1e-4 and all(r["kernel_twice_equal"] for r in tp_res),
+          f"{NAME} disagrees with its plain version at the tp eval's shape")
+    # (b) the (2, 2) grid against the one-process step and the dp = 2 step
+    (dloss1, dgrads1, dparams1), dp_ranks = dp_steps
+    top = max(g.abs().max().item() for g in dgrads1.values() if g is not None)
+    worst, moved, dead = 0.0, 0.0, set()
+    for s in grid_steps:
+        got = {k[len("grad/"):]: torch.from_numpy(v) for k, v in s.items()
+               if k.startswith("grad/")}
+        dead.add(len(dgrads1) - len(got))
+        check(set(got) == {n for n, g in dgrads1.items() if g is not None},
+              f"the (2, 2) grid's live set: {len(got)} of {len(dgrads1)}")
+        for n, g in got.items():
+            tol = GRAD_RTOL * dgrads1[n].abs().max().item() + GRAD_FLOOR * top
+            worst = max(worst, (g - dgrads1[n]).abs().max().item() / tol)
+        moved = max(moved, max((torch.from_numpy(s[f"param/{n}"]) - p).abs().max().item()
+                               for n, p in dparams1.items()))
+    loss_rel = max(abs(float(s["loss"]) - dloss1) / abs(dloss1) for s in grid_steps)
+    as_dp = all(s["loss"] == dp_ranks[0]["loss"] and all(
+        np.array_equal(s[k], dp_ranks[0][k]) for k in dp_ranks[0] if k.startswith("param/"))
+        for s in grid_steps)
+    L_c, B_c = DP_CHECK_SHAPE
+    print(f"[tp] {TP_GRID[0] * TP_GRID[1]} processes sharing the card over gloo, dp="
+          f"{TP_GRID[0]} x tp={TP_GRID[1]}, [{L_c}, {B_c}] dropout off ({grid_s:.1f} s with the "
+          f"timed steps): |loss| rel {loss_rel:.3e} of the one-process step's, gradients "
+          f"{worst:.3f} of the tolerance, dead {sorted(dead)}, max |param - one process| after "
+          f"Adam {moved / TRAIN_LR:.3f} lr; loss and parameters bit-equal to phase 14's dp=2 "
+          f"step: {as_dp}")
+    check(loss_rel <= TRAIN_LOSS_RTOL and worst <= 1.0 and moved <= 2.05 * TRAIN_LR
+          and dead == {ONLYSP_DEAD}, "the (2, 2) grid's step is not the one-process step")
+    check(as_dp, "the (2, 2) grid's step is not phase 14's dp=2 step bit for bit")
+    # (e) the CLI
+    cli = [r["launches"]["cli"] for r in tp_res]
+    print(f"[cli] train CLI --tp {TP_WAYS}, {TP_WAYS} processes over gloo, 1 epoch: "
+          f"{max(r['cli_s'] for r in tp_res):.1f} s, launches by process {cli}; score.txt "
+          f"blocks {blocks}, lines {lines}")
+    check(len(lines) == 1 and blocks == 1
+          and all(c.get(RANK1, 0) > 0 and c.get(NAME, 0) > 0 for c in cli),
+          f"train CLI --tp: score lines {lines}, blocks {blocks}, launches {cli}")
+    # times, memory and launches
+    for what, res, n in ((f"tp={TP_WAYS}", tp_res, TP_WAYS),
+                         (f"dp={TP_GRID[0]} x tp={TP_GRID[1]}", grid_res, TP_GRID[1])):
+        steps = [r["launches"]["step"] for r in res]
+        print(f"[time] {card} | {what} train step [{TRAIN_L}, {TRAIN_B}], {len(res)} processes "
+              f"sharing the card over gloo (median of 3 a process): "
+              + "; ".join(f"rank {r['rank']} {r['step_ms'][0]:.1f} ms, peak "
+                          f"{r['step_peak_gib']:.4f} GiB" for r in res)
+              + f"; launches a step by process {steps}")
+        check(all(s == {RANK1: 2 * TRAIN_L} for s in steps),
+              f"{what} step launched {steps}, want {RANK1} {2 * TRAIN_L}")
+    sums = lambda res, what, name: sum(r["launches"][what].get(name, 0)  # noqa: E731
+                                       for r in res)
+    return {RANK1: {f"tp={TP_WAYS} train step [{TRAIN_L}, {TRAIN_B}], {TP_WAYS} processes":
+                    sums(tp_res, "step", RANK1),
+                    f"dp={TP_GRID[0]} x tp={TP_GRID[1]} train step [{TRAIN_L}, {TRAIN_B}], "
+                    f"4 processes": sums(grid_res, "step", RANK1),
+                    f"train CLI --tp {TP_WAYS}, {TP_WAYS} processes, 1 epoch":
+                    sums(tp_res, "cli", RANK1)},
+            NAME: {f"tp={TP_WAYS} eval, {TP_WAYS} processes": sums(tp_res, "eval", NAME),
+                   f"train CLI --tp {TP_WAYS}, {TP_WAYS} processes, 1 epoch":
+                   sums(tp_res, "cli", NAME)}}
 
 
 def main() -> int:
@@ -3427,17 +3764,24 @@ def main() -> int:
 
     # 14. --compute_dtype bf16 through the bf16 rank-1 kernel, and --dp
     t0 = time.perf_counter()
-    bf16_record, dp_launches = bf16_dp_phase(torch, card, dev, logs)
+    bf16_record, dp_launches, dp_steps = bf16_dp_phase(torch, card, dev, logs)
     print(f"[bf16] phase 14 in {time.perf_counter() - t0:.1f} s; {bf16_record['name']} "
           f"launches by path: {bf16_record['launches_by_path']}")
+
+    # 15. --tp: tp 2 and the (2, 2) grid in processes sharing the card
+    t0 = time.perf_counter()
+    tp_launches = tp_phase(torch, card, dp_steps)
+    print(f"[tp] phase 15 in {time.perf_counter() - t0:.1f} s; launches by path: "
+          f"{tp_launches}")
     meld_tmp.cleanup()
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
                      "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
                       **variant_launches, **serve_launches[RANK1], **zoo_launches[RANK1],
-                      **dp_launches[RANK1]}
+                      **dp_launches[RANK1], **tp_launches[RANK1]}
     lsthm_launches = {"MARN1_onlysp Predictor, three requests": main_launches,
-                      **serve_launches[NAME], **zoo_launches[NAME], **dp_launches[NAME]}
+                      **serve_launches[NAME], **zoo_launches[NAME], **dp_launches[NAME],
+                      **tp_launches[NAME]}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",
@@ -3474,4 +3818,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp_worker"]:  # phase 14e's processes
         sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp_worker"]:  # phase 15's processes
+        sys.exit(tp_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -9,7 +9,8 @@ become ``[1, D]``. The mapping covers all 15 models of the registry, and for
 each its keys equal the JAX package's
 ``compat.torch_export.export_state_dict(params, NAME, prefix="")``. This is
 the port's own copy of that mapping. ``to_jax_params`` is its inverse, which
-writes a port state dict as the JAX package's checkpoint names.
+writes a port state dict as the JAX package's checkpoint names
+(``to_jax_leaf`` one key and value).
 
 The names differ from the keys in these ways: a cell's own parameters are
 flat leaves (``lsthm_q_U_kernel`` is ``lsthm_q.U.weight``,
@@ -186,7 +187,7 @@ def jax_layout(state_dict) -> str:
     return "cells" if wq is not None and wq.shape[0] > 1 else "flat"
 
 
-def _to_jax(key: str, v: np.ndarray, layout: str = "flat"):
+def to_jax_leaf(key: str, v: np.ndarray, layout: str = "flat"):
     """``(flat JAX name, value in JAX layout)`` for one port key of a model
     named by ``layout`` (``jax_layout``)."""
     kind = {"weight": "kernel", "bias": "bias"}
@@ -255,6 +256,6 @@ def to_jax_params(state_dict) -> dict[str, np.ndarray]:
     layout = jax_layout(state_dict)
     out = {}
     for key, value in state_dict.items():
-        name, v = _to_jax(key, value.detach().cpu().numpy(), layout)
+        name, v = to_jax_leaf(key, value.detach().cpu().numpy(), layout)
         out[name] = np.ascontiguousarray(v, dtype=np.float32)
     return out

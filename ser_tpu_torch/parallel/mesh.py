@@ -10,7 +10,10 @@ process_count=...)``) and runs the model on them; the trainer divides its
 rows' summed loss by the global batch's mask sum, and ``all_reduce_grads``
 sums the gradients over the processes, which gives the one-process
 gradient. Parameters start equal (``broadcast_params``) and stay equal:
-every process applies the same reduced gradient.
+every process applies the same reduced gradient. Under a (dp, tp) grid
+(``parallel/tp.py``) the reduce and the gather take the grid's dp group,
+and the loaders the dp index and count: over the world, each gradient
+would count n_tp times.
 
 ``DistributedDataParallel`` is not used: it averages the gradients, and its
 handling of parameters that get no gradient would give the dead ones (the
@@ -70,17 +73,17 @@ def local_batch_slice(process_index=None, process_count=None):
     return slicer
 
 
-def all_reduce_grads(params, *extra: torch.Tensor) -> tuple[torch.Tensor, ...]:
+def all_reduce_grads(params, *extra: torch.Tensor, group=None) -> tuple[torch.Tensor, ...]:
     """Sum the live gradients (``.grad`` not None) of ``params`` over the
-    processes in place, with one all-reduce of one flat buffer, and return
-    ``extra`` (scalars such as the loss) summed in the same call. Every
-    process must hold the same live set, which the same model on the same
-    graph gives."""
+    processes of ``group`` (the world's by default; a tp grid's dp group)
+    in place, with one all-reduce of one flat buffer, and return ``extra``
+    (scalars such as the loss) summed in the same call. Every process must
+    hold the same live set, which the same model on the same graph gives."""
     grads = [p.grad for p in params if p.grad is not None]
     parts = [g.reshape(-1) for g in grads] + [e.reshape(-1).to(grads[0].dtype)
                                               for e in extra]
     flat = torch.cat(parts)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     sizes = [t.numel() for t in parts]
     summed = flat.split(sizes)
     with torch.no_grad():
@@ -88,33 +91,42 @@ def all_reduce_grads(params, *extra: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(s.reshape(e.shape).to(e.dtype) for s, e in zip(summed[len(grads):], extra))
 
 
+def _group_world(group) -> tuple[int, int]:
+    """``(rank, size)`` in ``group``, the world's without one."""
+    if group is None:
+        return world()
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
 class _GatherRows(torch.autograd.Function):
     """All-gather over dim 0 in rank order; the backward sums the output's
     gradient over the processes and keeps this process's rows."""
 
     @staticmethod
-    def forward(ctx, t):
-        rank, size = world()
+    def forward(ctx, t, group):
+        rank, size = _group_world(group)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(size)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=group)
         ctx.rows = slice(rank * t.shape[0], (rank + 1) * t.shape[0])
+        ctx.group = group
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g[ctx.rows]
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.rows], None
 
 
-def gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` of every process concatenated over dim 0 in rank order (each
-    process's rows of equal count), differentiable; ``t`` itself without a
-    process group of more than one."""
-    if world()[1] == 1:
+def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` of every process of ``group`` (the world's by default; a tp
+    grid's dp group) concatenated over dim 0 in rank order (each process's
+    rows of equal count), differentiable; ``t`` itself where the group has
+    one process."""
+    if _group_world(group)[1] == 1:
         return t
-    return _GatherRows.apply(t)
+    return _GatherRows.apply(t, group)
 
 
 def broadcast_params(model: torch.nn.Module) -> None:

@@ -109,21 +109,22 @@ def write_res_csv(path, preds, labels, masks) -> None:
             w.writerow([int(p), int(lab), str(np.float32(m))])
 
 
-def eval_network(predictor: Predictor, loader, res_csv=None):
+def eval_network(predictor: Predictor, loader, res_csv=None, group=None):
     """Predict every batch of ``loader``; write ``res_csv`` and return
     ``(weighted accuracy, weighted F1)`` over the unmasked utterances. The
     rows of ``res_csv`` are in the order of the model's outputs, as the
     JAX package writes them (time-major for MARN_AT and MARN_ATV). Under
     data parallelism (batches with ``label_global``) each process predicts
-    its rows, the predictions are gathered over the processes in rank order
-    and the metrics come from the global labels and mask."""
+    its rows, the predictions are gathered over the processes of ``group``
+    (the world's by default; a tp grid's dp group) in rank order and the
+    metrics come from the global labels and mask."""
     rows = predictor.spec.rows
     preds, labels, masks = [], [], []
     for batch in loader:
         # predictions stay on the device until the loop ends
         grid = predictor.predict_batch(batch)[1]
         if "label_global" in batch:
-            grid = gather_rows(grid)
+            grid = gather_rows(grid, group)
         preds.append(rows(grid))
         labels.append(rows(np.asarray(batch.get("label_global", batch["label"]))))
         masks.append(rows(np.asarray(batch.get("umask_global", batch["umask"]))))

@@ -10,6 +10,7 @@
         --infonce 0.1 --debug_nans
     python -m ser_tpu_torch.train --synthetic --compute_dtype bf16
     torchrun --nproc_per_node=N -m ser_tpu_torch.train --synthetic --dp
+    torchrun --nproc_per_node=N -m ser_tpu_torch.train --synthetic --tp T
 
 The flags are ``train.py``'s, plus ``--device`` (default ``cuda``; without
 CUDA it raises unless given ``--device cpu``). The epoch loop is the same:
@@ -31,8 +32,12 @@ trains data parallel: each process loads its rows of every global batch,
 the batch size must divide over the processes, and only rank 0 writes
 ``score.txt``, the checkpoints, ``res.csv``, ``parameters.csv`` and
 ``--export_torch``; a single process prints that it runs single, as
-``train.py`` does. The flags the port cannot honour yet are refused with the
-ROADMAP item that queues them.
+``train.py`` does. ``--tp T`` under ``torchrun`` with N processes trains on
+the (N / T, T) grid of ``parallel/tp.py``: each process stores its shard
+of the weights and Adam's state by the JAX package's rule, the N / T dp
+rows each load their rows of every global batch, and only the world's rank
+0 writes; T must divide N (one process included) and N / T the batch size,
+which ``train.py``'s messages say.
 """
 
 from __future__ import annotations
@@ -59,24 +64,11 @@ from ser_tpu_torch.utils import profiling
 from ser_tpu_torch.utils.paths import init_args
 from ser_tpu_torch.utils.seeding import seed_everything
 
-# flag -> (is it set to something the port lacks, why, ROADMAP item)
-_QUEUED = {
-    "tp": (lambda v: v > 1, "tensor parallelism", "A.14"),
-}
-
-
 def check_supported(args) -> None:
-    """Raise on an unknown model (``KeyError`` listing the available ones),
-    an unknown ``--encoder_attention`` (``ValueError``) or a flag the port
-    cannot honour yet, naming its ROADMAP item."""
+    """Raise on an unknown model (``KeyError`` listing the available ones)
+    or an unknown ``--encoder_attention`` (``ValueError``)."""
     get_model_spec(args.model)
     check_kind(args.encoder_attention)
-    for flag, (is_set, what, item) in _QUEUED.items():
-        value = getattr(args, flag)
-        if is_set(value):
-            raise NotImplementedError(
-                f"--{flag} {value}: the port has no {what} yet; queued "
-                f"(ROADMAP {item})")
 
 
 def write_parameters_csv(path, columns: dict) -> None:
@@ -92,32 +84,48 @@ def write_parameters_csv(path, columns: dict) -> None:
             w.writerow([cell(v) for v in row])
 
 
-def _data_parallel(args) -> tuple[dict, bool]:
-    """``--dp``: join the process group ``torchrun`` describes, as
-    ``train.py`` joins its processes. Returns the loaders' process
-    arguments and whether this process made the group."""
-    made = not torch.distributed.is_initialized()
-    args.device = str(initialize_distributed(args.device))
-    made = made and torch.distributed.is_initialized()
+def _parallel(args) -> dict:
+    """``--tp`` above 1, or ``--dp``, in the process group joined: check
+    the layout with ``train.py``'s messages and return the loaders' process
+    arguments. ``--tp T`` over N processes is the (N / T, T) grid: the loaders
+    take the dp index and count (``parallel/tp.py``)."""
     rank, n = world()
+    if args.tp > 1:
+        if n % args.tp:
+            raise SystemExit(f"--tp {args.tp} does not divide {n} devices")
+        n_dp = n // args.tp
+        if args.batch_size % n_dp:
+            raise SystemExit(f"--tp {args.tp} needs batch_size divisible by {n_dp} "
+                             "data-parallel ways")
+        if n_dp > 1:
+            print(f"process {rank}/{n}: loading {args.batch_size // n_dp} of "
+                  f"{args.batch_size} dialogues per batch")
+        print(f"2-D mesh: dp={n_dp} x tp={args.tp}")
+        return dict(process_index=rank // args.tp, process_count=n_dp) if n_dp > 1 else {}
     if n == 1:
         print("--dp requested but only one device present; running single")
         args.dp = False
-        return {}, made
+        return {}
     if args.batch_size % n:
         raise SystemExit(f"--dp needs batch_size divisible by {n} devices")
     print(f"process {rank}/{n}: loading {args.batch_size // n} of "
           f"{args.batch_size} dialogues per batch")
     print(f"Data-parallel mesh over {n} devices")
-    return dict(process_index=rank, process_count=n), made
+    return dict(process_index=rank, process_count=n)
 
 
 def main(args):
     check_supported(args)
     resolve_device(args.device)  # before any file is written
-    proc, made_group = _data_parallel(args) if args.dp else ({}, False)
+    parallel = args.tp > 1 or args.dp
+    # --dp and --tp join the process group torchrun describes, as train.py
+    # joins its processes
+    made_group = parallel and not torch.distributed.is_initialized()
+    if parallel:
+        args.device = str(initialize_distributed(args.device))
+    made_group = made_group and torch.distributed.is_initialized()
     try:
-        _main(args, proc)
+        _main(args, _parallel(args) if parallel else {})
     finally:
         if made_group:
             torch.distributed.destroy_process_group()
@@ -160,8 +168,8 @@ def _resolve_resume(resume, model_save_path):
 
 
 def _run(args, use_frontend, proc):
-    # only rank 0 writes the files the processes share
-    primary = proc.get("process_index", 0) == 0
+    # only the world's rank 0 writes the files the processes share
+    primary = not (args.dp or args.tp > 1) or world()[0] == 0
     train_loader, valid_loader, test_loader = get_loaders(
         args.feature_path, dataset=args.dataset, valid=0.2,
         batch_size=args.batch_size, n_classes=args.n_classes, seed=args.seed,
@@ -174,7 +182,7 @@ def _run(args, use_frontend, proc):
         trainer = ModelTrainer(**vars(args))
         print("Model %s loaded from previous state!" % args.initial_model)
         trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
-        if args.export_torch and primary:
+        if args.export_torch:  # every process calls it; rank 0 writes
             trainer.export_parameters_torch(args.export_torch)
             print(f"Exported reference-format checkpoint: {args.export_torch}")
         acc, fscore, _ = trainer.eval_network(test_loader)
@@ -208,8 +216,8 @@ def _run(args, use_frontend, proc):
             lr, loss = trainer.train_network(epoch, train_loader)
             if epoch % args.test_step:
                 continue
-            if primary:
-                trainer.save_parameters(args.model_save_path + "/model_%04d.model" % epoch)
+            # every process calls it (under --tp it gathers); rank 0 writes
+            trainer.save_parameters(args.model_save_path + "/model_%04d.model" % epoch)
             acc, fscore, _ = trainer.eval_network(test_loader)
             for k, v in trainer.fusion_weights().items():
                 w_dic[k].append(v)
@@ -225,7 +233,7 @@ def _run(args, use_frontend, proc):
                 trainer.save_train_state(
                     args.model_save_path + "/last.state", epoch,
                     {"fscores": fscores, **{f"fusion/{k}": v for k, v in w_dic.items()}})
-        if args.export_torch and primary:
+        if args.export_torch:
             trainer.export_parameters_torch(args.export_torch)
             print(f"Exported reference-format checkpoint: {args.export_torch}")
         score_file.write("\n")
@@ -261,7 +269,9 @@ def parser_args(argv=None):
     p.add_argument("--dp", action="store_true",
                    help="data parallelism over the processes torchrun starts "
                         "(one a card; gloo between --device cpu processes)")
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: the weights and Adam's state sharded "
+                        "over T of the processes torchrun starts")
     p.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first NaN of a train step")
     p.add_argument("--save_state", action="store_true",

@@ -102,15 +102,16 @@ def save_parameters(model: torch.nn.Module, path) -> None:
 _ADAM_LEAVES = ("exp_avg", "exp_avg_sq", "step")
 
 
-def save_train_state(path, model: torch.nn.Module,
-                     optimizer: torch.optim.Optimizer, extra: dict) -> None:
-    """Write the parameters, Adam's state and ``extra`` (name -> array) to
-    ``path`` for an exact resume."""
+def save_train_state(path, params: dict, states: dict, extra: dict) -> None:
+    """Write ``params`` (key -> parameter), Adam's state of each (``states``:
+    key -> its ``optimizer.state`` entry, None or empty where Adam has never
+    stepped it) and ``extra`` (name -> array) to ``path`` for an exact
+    resume."""
     flat = {}
-    for key, p in model.named_parameters():
+    for key, p in params.items():
         value = p.detach().cpu().numpy()
         flat[f"params/{key}"] = value
-        state = optimizer.state.get(p) or {
+        state = states.get(key) or {
             "exp_avg": np.zeros_like(value), "exp_avg_sq": np.zeros_like(value),
             "step": np.float32(0)}
         for leaf in _ADAM_LEAVES:
@@ -122,34 +123,29 @@ def save_train_state(path, model: torch.nn.Module,
     _atomic_savez(path, flat)
 
 
-def load_train_state(path, model: torch.nn.Module,
-                     optimizer: torch.optim.Optimizer) -> dict:
-    """Restore what ``save_train_state`` wrote into ``model`` and
-    ``optimizer``; return the ``extra`` arrays by name."""
+def load_train_state(path, shapes: dict) -> tuple[dict, dict, dict]:
+    """Read what ``save_train_state`` wrote for parameters of ``shapes``
+    (key -> shape): ``(params, states, extra)``, key -> tensor, key -> Adam
+    state (None where Adam had never stepped the parameter) and name ->
+    array."""
     with np.load(path, allow_pickle=False) as z:
         loaded = {k: z[k] for k in z.files}
-    index = {id(p): i for i, p in enumerate(
-        p for group in optimizer.param_groups for p in group["params"])}
-    params, state = {}, {}
-    for key, p in model.named_parameters():
+    params, states = {}, {}
+    for key, shape in shapes.items():
         names = [f"params/{key}"] + [f"opt/{key}/{leaf}" for leaf in _ADAM_LEAVES]
         missing = [n for n in names if n not in loaded]
         if missing:
             raise ValueError(f"train-state file {path} lacks {missing}")
         for name in names[:3]:
-            if loaded[name].shape != tuple(p.shape):
+            if loaded[name].shape != tuple(shape):
                 raise ValueError(f"{name}: shape {loaded[name].shape} in {path}, "
-                                 f"model has {tuple(p.shape)}")
+                                 f"model has {tuple(shape)}")
         params[key] = torch.from_numpy(loaded[names[0]])
-        if loaded[names[3]] != 0:  # Adam has stepped this parameter
-            state[index[id(p)]] = {leaf: torch.from_numpy(loaded[n])
-                                   for leaf, n in zip(_ADAM_LEAVES, names[1:])}
-    with torch.no_grad():
-        for key, p in model.named_parameters():
-            p.copy_(params[key])
-    optimizer.load_state_dict({"state": state,
-                               "param_groups": optimizer.state_dict()["param_groups"]})
-    return {k[len("extra/"):]: v for k, v in loaded.items() if k.startswith("extra/")}
+        states[key] = ({leaf: torch.from_numpy(loaded[n])
+                        for leaf, n in zip(_ADAM_LEAVES, names[1:])}
+                       if loaded[names[3]] != 0 else None)  # Adam has stepped it
+    return params, states, {k[len("extra/"):]: v for k, v in loaded.items()
+                            if k.startswith("extra/")}
 
 
 def load_parameters(model: torch.nn.Module, path, torch_format=False,

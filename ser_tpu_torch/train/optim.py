@@ -23,11 +23,18 @@ zeroes the update while Adam's moments and count still advance; torch's own
 Adam would apply the decay to it. ``Adam.step`` restores such a parameter
 after torch's step: the moments advance as optax's do. The reference's data
 never meets it.
+
+Under tensor parallelism (``parallel/tp.py``) a parameter here is a shard
+of a JAX leaf, and the freeze is decided on the whole leaf, as
+``_mask_dead_params`` decides it: one all-reduce of the shards' nonzero
+flags over the tp group. A shard whose gradient is all zero is updated when
+another shard of its leaf has a nonzero gradient.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 class Adam(torch.optim.Adam):
@@ -35,7 +42,13 @@ class Adam(torch.optim.Adam):
     zero keeps its value for the step (the JAX package's
     ``_mask_dead_params``). The restore is a few device ops over all
     parameters at once (an infinity norm of every gradient, three ``cat``s,
-    a ``where`` and a ``_foreach_copy_``), with no host sync."""
+    a ``where`` and a ``_foreach_copy_``), with no host sync. With
+    ``tp_group`` the parameters are shards and a leaf is frozen only where
+    every shard's gradient is all zero."""
+
+    def __init__(self, params, tp_group=None, **kwargs):
+        super().__init__(params, **kwargs)
+        self.tp_group = tp_group
 
     def step(self, closure=None):
         params = [p for group in self.param_groups for p in group["params"]
@@ -43,8 +56,13 @@ class Adam(torch.optim.Adam):
         if not params:
             return super().step(closure)
         with torch.no_grad():
-            frozen = torch.stack(torch._foreach_norm(
-                [p.grad for p in params], float("inf"))) == 0
+            norms = torch.stack(torch._foreach_norm([p.grad for p in params], float("inf")))
+            if self.tp_group is None:
+                frozen = norms == 0
+            else:  # every tp process holds the same live set
+                live = (norms != 0).float()
+                dist.all_reduce(live, group=self.tp_group)
+                frozen = live == 0
             before = torch.cat([p.reshape(-1) for p in params])
         loss = super().step(closure)
         with torch.no_grad():
@@ -57,10 +75,12 @@ class Adam(torch.optim.Adam):
 
 
 def torch_adam(params, lr: float = 1e-3, weight_decay: float = 2e-5,
-               betas=(0.9, 0.999), eps: float = 1e-8) -> Adam:
+               betas=(0.9, 0.999), eps: float = 1e-8, tp_group=None) -> Adam:
     """Adam with coupled weight decay; the trainer sets the learning rate of
-    each epoch from ``step_lr``."""
-    return Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+    each epoch from ``step_lr``. ``tp_group``: the tp group whose processes
+    hold the other shards of the parameters."""
+    return Adam(params, tp_group=tp_group, lr=lr, betas=betas, eps=eps,
+                weight_decay=weight_decay)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

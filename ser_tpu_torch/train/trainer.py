@@ -35,7 +35,21 @@
   step. Eval gathers the predictions; only rank 0 writes ``res.csv`` and the
   train-state file. Each process draws its dropouts from its own stream,
   seeded from (seed, rank), so with dropout on a step is not the
-  one-process step (the JAX package draws one global mask; ROADMAP §C).
+  one-process step (the JAX package draws one global mask; ROADMAP §C);
+- ``tp`` (``--tp``) under a process group of ``n_dp * tp`` processes:
+  the (dp, tp) grid of ``parallel/tp.py``. Each process stores its shard of
+  every parameter the JAX rule shards (``parallel.shard_dims``), so Adam's
+  moments are shards too; the train forward runs the one-process model on
+  the whole weights, gathered inside autograd (``parallel.gather_shards``;
+  cast to bf16 after the gather under ``compute_dtype="bf16"``), and each
+  process keeps its slice of each whole gradient. The dp index takes the
+  place of the rank above (rows, dropout stream, the gradients' and the
+  InfoNCE negatives' group); the processes of a tp group so draw the same
+  masks, and at ``n_dp`` 1 a step is the one-process step. Eval,
+  ``fusion_weights`` and the files run on the gathered whole weights
+  (``parallel.whole_parameters``), so every tp process must call them; the
+  files have the one-process layout and keys, and only the world's rank 0
+  writes them.
 
 The model lives on one device (``cuda`` unless the caller asks for the CPU).
 A train step is eager PyTorch: the forward with every dropout drawn from the
@@ -50,6 +64,7 @@ kernel once a batch.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from itertools import chain
 
@@ -89,15 +104,28 @@ class ModelTrainer:
                  model="MARN1_onlysp", loss="CrossEntropy", n_classes=6,
                  seed=111, weight_decay=2e-5, res_csv_path="res.csv",
                  audio_frontend=None, infonce=0.0, encoder_attention="mha",
-                 compute_dtype="f32", dp=False, **kwargs):
+                 compute_dtype="f32", dp=False, tp=1, **kwargs):
         del kwargs  # the CLI passes all of its flags
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be 'f32' or 'bf16', got {compute_dtype!r}")
         self.compute_dtype = COMPUTE_DTYPES[compute_dtype]
-        # data parallel under a process group, of any size (one included)
-        self.dp = bool(dp) and torch.distributed.is_initialized()
-        self.rank, self.world = parallel.world() if self.dp else (0, 1)
+        self.grid = None
+        if tp > 1:  # the (dp, tp) grid over every process of the group
+            n = parallel.world()[1]
+            if n % tp:
+                raise ValueError(f"tp={tp} does not divide {n} processes")
+            self.grid = parallel.make_grid(n // tp, tp)
+        # data parallel under a process group, of any size (one included);
+        # rank and world are the dp index and count
+        self.dp = (bool(dp) and torch.distributed.is_initialized()) or self.grid is not None
+        if self.grid is not None:
+            self.rank, self.world = self.grid.dp_index, self.grid.n_dp
+        else:
+            self.rank, self.world = parallel.world() if self.dp else (0, 1)
+        self.dp_group = None if self.grid is None else self.grid.dp_group
+        # only the world's rank 0 writes what the processes share
+        self.primary = not self.dp or parallel.world()[0] == 0
         self.predictor = Predictor(model, seed=seed, device=device,
                                    n_classes=n_classes, audio_frontend=audio_frontend,
                                    encoder_attention=encoder_attention)
@@ -113,16 +141,26 @@ class ModelTrainer:
                   f"the InfoNCE term is skipped")
         if self.dp:
             parallel.broadcast_params(self.model)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        # parameter name -> the dim its shards split, for the sharded ones
+        self.shards = {}
+        if self.grid is not None:
+            self.shards = {n: d for n, d in parallel.shard_dims(self.model, tp).items()
+                           if d is not None}
+            parallel.shard_model_(self.model, self.shards, self.grid)
         # every dropout mask of a train step is drawn from this generator
         self.generator = torch.Generator(self.device).manual_seed(
             stream_seed(seed, self.rank))
-        n_params = sum(p.numel() for p in self.model.parameters())
         print(time.strftime("%m-%d %H:%M:%S")
               + " Model para number = %.2f" % (n_params / 1024 / 1024))
         self.weight_decay = weight_decay
-        self.optimizer = torch_adam(self.model.parameters(), lr, weight_decay)
+        self.optimizer = self._adam(lr)
         self.lr_at = step_lr(lr, lr_decay, test_step)
         self.history = {}  # filled by load_train_state
+
+    def _adam(self, lr):
+        return torch_adam(self.model.parameters(), lr, self.weight_decay,
+                          tp_group=None if self.grid is None else self.grid.tp_group)
 
     def _train_step_impl(self, batch, lr: float) -> torch.Tensor:
         """One optimizer step on a collated numpy batch; returns the loss on
@@ -151,50 +189,60 @@ class ModelTrainer:
                            outside_adds_zero=logp.shape[-1] != self.n_classes,
                            denominator=denominator)
         if self.infonce > 0 and spec.feature_outputs:
-            loss = loss + self.infonce * self.infonce_term(out, self.dp)
+            loss = loss + self.infonce * self.infonce_term(out, self.world > 1, self.dp_group)
         profiling.check_finite("the loss", loss)
         profiling.backward(loss)
         loss = loss.detach()
-        if self.dp:
-            (loss,) = parallel.all_reduce_grads(self.model.parameters(), loss)
+        if self.world > 1:
+            (loss,) = parallel.all_reduce_grads(self.model.parameters(), loss,
+                                                group=self.dp_group)
         set_lr(self.optimizer, lr)
         self.optimizer.step()
         return loss
 
     def _forward(self, x, qmask, umask):
-        """The train forward. In a bf16 step the parameters (and buffers)
-        are cast to bf16 inside autograd and the model runs on the casts
-        (``functional_call``), the JAX step's ``_cast_floats`` of the params
-        in ``loss_fn``; it computes in x's dtype, bf16, or f32 where the
-        audio front end's f32 features promote x (the JAX concatenation's
-        promotion), and then the casts are widened back to f32. The outputs
-        come back in f32."""
-        if self.compute_dtype is torch.float32:
+        """The train forward. Under ``tp`` the model runs on the whole
+        parameters, gathered from the shards inside autograd
+        (``functional_call``). In a bf16 step the parameters (and buffers),
+        whole, are cast to bf16 inside autograd and the model runs on the
+        casts, the JAX step's ``_cast_floats`` of the params in ``loss_fn``;
+        it computes in x's dtype, bf16, or f32 where the audio front end's
+        f32 features promote x (the JAX concatenation's promotion), and then
+        the casts are widened back to f32. The outputs come back in f32."""
+        if self.compute_dtype is torch.float32 and self.grid is None:
             return self.model(x, qmask, umask, generator=self.generator)
+        tensors = dict(chain(self.model.named_parameters(), self.model.named_buffers()))
+        if self.grid is not None:
+            names = list(self.shards)
+            tensors.update(zip(names, parallel.gather_shards(
+                [tensors[n] for n in names], [self.shards[n] for n in names], self.grid)))
+        if self.compute_dtype is torch.float32:
+            return torch.func.functional_call(self.model, tensors, (x, qmask, umask),
+                                              {"generator": self.generator})
         dtype = x.dtype
         tensors = {name: t.to(self.compute_dtype).to(dtype) if t.is_floating_point() else t
-                   for name, t in chain(self.model.named_parameters(),
-                                        self.model.named_buffers())}
+                   for name, t in tensors.items()}
         out = torch.func.functional_call(
             self.model, tensors, (x, qmask.to(dtype), umask.to(dtype)),
             {"generator": self.generator})
         return _widen(out)
 
     @staticmethod
-    def infonce_term(out, data_parallel: bool = False) -> torch.Tensor:
+    def infonce_term(out, data_parallel: bool = False, group=None) -> torch.Tensor:
         """The reference's commented formulation (``model_trainer.py:111-115``):
         each dialogue's time-major features ``out[1]``, ``out[2]`` ``[L, B,
         D]`` flattened to ``[B, L·D]``, padded positions included; query and
         positive ``out[1]``, negatives ``out[2]``, unpaired. With
-        ``data_parallel`` the negatives are every process's rows
-        (``parallel.gather_rows``) and the term is this process's share of
-        the global mean, so the processes' terms sum to the global one."""
+        ``data_parallel`` the negatives are every process's rows of
+        ``group`` (``parallel.gather_rows``; the world's by default, a tp
+        grid's dp group) and the term is this process's share of the global
+        mean, so the processes' terms sum to the global one."""
         b = out[1].shape[1]
         q = out[1].transpose(0, 1).reshape(b, -1)
         neg = out[2].transpose(0, 1).reshape(b, -1)
         if not data_parallel:
             return info_nce(q, q, neg, negative_mode="unpaired")
-        negatives = parallel.gather_rows(neg)
+        negatives = parallel.gather_rows(neg, group)
         rows = info_nce(q, q, negatives, negative_mode="unpaired", reduction="none")
         return rows.sum() / negatives.shape[0]
 
@@ -212,58 +260,125 @@ class ModelTrainer:
                                / np.sum(mask_sums)), 4)
         return lr, avg_loss
 
+    def whole_parameters(self, reshard=False):
+        """A context in which the model holds its whole parameters, and with
+        ``reshard`` what is written into them reaches the shards (a no-op
+        without ``tp``; ``parallel.whole_parameters``). Every tp process
+        must enter it."""
+        if self.grid is None:
+            return contextlib.nullcontext()
+        return parallel.whole_parameters(self.model, self.shards, self.grid, reshard)
+
     def eval_network(self, loader):
         self.model.eval()
-        acc, f1 = eval_network(self.predictor, loader,
-                               self.res_csv_path if self.rank == 0 else None)
+        with self.whole_parameters():
+            acc, f1 = eval_network(self.predictor, loader,
+                                   self.res_csv_path if self.primary else None,
+                                   group=self.dp_group)
         return acc, f1, {}
 
     def fusion_weights(self):
-        return fusion_weights(self.model)
+        with self.whole_parameters():
+            return fusion_weights(self.model)
 
     def save_parameters(self, path):
-        ckpt.save_parameters(self.model, path)
+        """Every process calls it; the world's rank 0 writes."""
+        with self.whole_parameters():
+            if self.primary:
+                ckpt.save_parameters(self.model, path)
 
     def load_parameters(self, path, torch_format=False):
-        ckpt.load_parameters(self.model, path, torch_format=torch_format)
+        with self.whole_parameters(reshard=True):
+            ckpt.load_parameters(self.model, path, torch_format=torch_format)
         # the reference checkpoints no optimizer state: Adam starts anew
-        self.optimizer = torch_adam(self.model.parameters(),
-                                    self.optimizer.param_groups[0]["lr"],
-                                    self.weight_decay)
+        self.optimizer = self._adam(self.optimizer.param_groups[0]["lr"])
+
+    def _layout(self) -> tuple[int, int]:
+        """``(processes, tp)`` of this run, which a train-state file records
+        as ``world_size`` and ``tp`` where each is above 1."""
+        n_tp = 1 if self.grid is None else self.grid.n_tp
+        return self.world * n_tp, n_tp
+
+    def _whole_train_state(self) -> tuple[dict, dict]:
+        """``(parameters, Adam states)`` by key, whole: under ``tp`` the
+        shards of both gathered (every tp process must call it)."""
+        named = dict(self.model.named_parameters())
+        states = {n: self.optimizer.state.get(p) for n, p in named.items()}
+        if self.grid is None:
+            return named, states
+        # the live set (Adam has state) is the same on every tp process
+        parts = [(n, None) for n in self.shards] + [
+            (n, leaf) for n in self.shards if states[n] for leaf in ("exp_avg", "exp_avg_sq")]
+        with torch.no_grad():
+            wholes = parallel.gather_shards(
+                [named[n] if leaf is None else states[n][leaf] for n, leaf in parts],
+                [self.shards[n] for n, _ in parts], self.grid)
+        states = {n: dict(s) if s else s for n, s in states.items()}
+        for (n, leaf), whole in zip(parts, wholes):
+            if leaf is None:
+                named[n] = whole
+            else:
+                states[n][leaf] = whole
+        return named, states
 
     def save_train_state(self, path, epoch, history=None):
         """Everything a resumed run needs to continue as if never stopped:
         the parameters, Adam's state, ``epoch``, the generator's state and
         ``history`` (name -> list of floats the caller keeps across epochs,
         such as the train CLI's F1 scores), as ``extra/history/<name>``.
-        Under data parallelism every process calls it: rank 0 gathers each
-        process's generator state (``[world, n]``) and writes the file."""
+        Under data or tensor parallelism every process calls it: the dp
+        processes' generator states are gathered (``[dp count, n]``), the
+        shards made whole, and the world's rank 0 writes the one-process
+        layout with the processes' (``_layout``)."""
         state = self.generator.get_state()
         if self.world > 1:
-            state = parallel.gather_rows(state[None].to(self.device)).cpu()
-        if self.rank != 0:
+            state = parallel.gather_rows(state[None].to(self.device), self.dp_group).cpu()
+        params, states = self._whole_train_state()
+        if not self.primary:
             return
         extra = {"epoch": int(epoch), "generator": state.numpy()}
-        if self.world > 1:  # a one-process file has no such key
-            extra["world_size"] = self.world
+        for key, value in zip(("world_size", "tp"), self._layout()):
+            if value > 1:  # a one-process file has no such key
+                extra[key] = value
         for name, values in (history or {}).items():
             extra[f"history/{name}"] = np.asarray(values, dtype=np.float64)
-        ckpt.save_train_state(path, self.model, self.optimizer, extra)
+        ckpt.save_train_state(path, params, states, extra)
 
     def load_train_state(self, path):
         """Restore a ``save_train_state`` file; returns the saved epoch and
-        leaves the saved history in ``self.history``. Each process restores
-        its own generator state; a file written by another number of
-        processes raises ``ValueError``."""
+        leaves the saved history in ``self.history``. Each dp process
+        restores its own generator state, and under ``tp`` each process its
+        shards; a file written by another number of processes, or at
+        another ``tp``, raises ``ValueError``."""
         with np.load(path) as z:  # before anything is restored
-            saved = int(z["extra/world_size"]) if "extra/world_size" in z.files else 1
-        if saved != self.world:
-            raise ValueError(f"train-state file {path} was written by {saved} "
-                             f"process(es); this run has {self.world}")
-        extra = ckpt.load_train_state(path, self.model, self.optimizer)
+            saved_n, saved_tp = (int(z[f"extra/{k}"]) if f"extra/{k}" in z.files else 1
+                                 for k in ("world_size", "tp"))
+        n, n_tp = self._layout()
+        if saved_n != n:
+            raise ValueError(f"train-state file {path} was written by {saved_n} "
+                             f"process(es); this run has {n}")
+        if saved_tp != n_tp:
+            raise ValueError(f"train-state file {path} was written at tp={saved_tp}; "
+                             f"this run has tp={n_tp}")
+        named = dict(self.model.named_parameters())
+        shapes = {n: tuple(p.shape) for n, p in named.items()}
+        for n, d in self.shards.items():  # the file holds whole leaves
+            shapes[n] = shapes[n][:d] + (shapes[n][d] * self.grid.n_tp,) + shapes[n][d + 1:]
+        params, states, extra = ckpt.load_train_state(path, shapes)
         missing = sorted({"epoch", "generator"} - set(extra))
         if missing:
             raise ValueError(f"train-state file {path} lacks extra/{missing}")
+        for n, d in self.shards.items():
+            params[n] = parallel.local_shard(params[n], d, self.grid)
+            for leaf in ("exp_avg", "exp_avg_sq") if states[n] else ():
+                states[n][leaf] = parallel.local_shard(states[n][leaf], d, self.grid)
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(params[n])
+        index = {n: i for i, n in enumerate(named)}
+        self.optimizer.load_state_dict({
+            "state": {index[n]: s for n, s in states.items() if s},
+            "param_groups": self.optimizer.state_dict()["param_groups"]})
         state = extra["generator"]
         self.generator.set_state(torch.from_numpy(state[self.rank] if state.ndim == 2
                                                   else state))
@@ -273,6 +388,9 @@ class ModelTrainer:
 
     def export_parameters_torch(self, path):
         """``torch.save`` of the state dict, whose keys are the reference's:
-        the reference stack and ``load_parameters(torch_format=True)`` read it."""
-        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-                   path)
+        the reference stack and ``load_parameters(torch_format=True)`` read it.
+        Every process calls it; the world's rank 0 writes."""
+        with self.whole_parameters():
+            if self.primary:
+                torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                           path)

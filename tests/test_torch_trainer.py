@@ -10,11 +10,10 @@ packages.
   predictions: ``res.csv`` equal byte for byte.
 - The train CLI writes ``score.txt``, the checkpoints and ``parameters.csv``;
   ``--eval True`` prints the JAX ``train.py``'s Acc/Fscore line on one
-  checkpoint; every flag the port cannot honour yet (``--tp``) is refused
-  with its ROADMAP item (``tests/test_torch_resume.py`` holds the ones it
-  took up: ``--dataset MELD``, ``--save_state``, ``--resume``;
-  ``tests/test_torch_mixed_precision.py`` and ``tests/test_torch_parallel.py``
-  ``--compute_dtype bf16`` and ``--dp``).
+  checkpoint (``tests/test_torch_resume.py`` holds ``--dataset MELD``,
+  ``--save_state`` and ``--resume``; ``tests/test_torch_mixed_precision.py``,
+  ``tests/test_torch_parallel.py`` and ``tests/test_torch_tp.py``
+  ``--compute_dtype bf16``, ``--dp`` and ``--tp``).
 """
 
 import numpy as np
@@ -233,14 +232,6 @@ def test_eval_cli_prints_the_jax_train_py_line(cli_run, feature_path, tmp_path,
     jax = [line for line in capsys.readouterr().out.splitlines()
            if line.startswith("Acc ")]
     assert len(port) == 1 and port == jax
-
-
-@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "A.14")])
-def test_cli_refuses_what_the_port_lacks(flag, item, tmp_path):
-    args = _cli_args(str(tmp_path), tmp_path / "exp", *flag)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        train_cli.main(args)
-    assert not list(tmp_path.iterdir())  # refused before any file is written
 
 
 def test_cli_names_the_zoo_item_for_another_model(tmp_path):
