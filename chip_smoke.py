@@ -246,6 +246,28 @@ Phases, each fatal on failure:
     bit-equal to phase 14's two-process ``--dp`` step; the [110, 80] step
     of both layouts timed (median of 3 a process) with each process's peak
     memory and the rank-1 kernel's 220 launches a step.
+16. the DialogueRNN suite's extras (``models/dialogue_rnn_extras.py``),
+    the C collate, FLOP counts and ``analysis``: (a) the six extras at full
+    width on seeded weights carried through the JAX package's names
+    (DialogueRNNModel and AVECModel at the registry DialogueRNN's widths
+    [110, 80], 'simple' and no listener state, DialogueRNNModel's eval also
+    with ``att2`` off and with 'general2' and listener state;
+    DailyDialogueModel [32, 80] of 32 words; E2EModel and BiE2EModel three
+    turns of [32, 80]; a 20,000-token vocabulary): an eval card against CPU
+    (rtol 1e-3, atol 1e-4 on valid rows) and every kernel counter 0; one
+    step card against CPU with dropout off at the train-step contract, the
+    card replaying the CPU's ReLU decisions (``PinnedRelu``, at most 1e-5 of
+    them flipped); one step with dropout on, each rate's kept fraction
+    within 6 standard deviations of 1 - p; (b) ms a request (median of 10)
+    and a step (median of 3), kernel launches, idle, peak memory of each
+    and its rise above what was held before the step;
+    (c) every loader batch of the synthetic IEMOCAP and MELD pickles through
+    the C collate bit-equal to the numpy version, and the host ms of a
+    [110, 80] batch both ways; (d) ``count_flops`` of onlysp's eval forward
+    [82, 31] and train step [110, 80] on the plain path on the CPU, and
+    ``efficiency`` against phases 5's request and 8's step; (e)
+    ``analysis.analyze_res`` on phase 4c's ``res.csv`` gives the predict
+    CLI's accuracy and F1.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2924,6 +2946,320 @@ def tp_phase(torch, card, dp_steps):
                    sums(tp_res, "cli", NAME)}}
 
 
+# phase 16: the DialogueRNN suite's extras at full width. The JAX package
+# fixes no width for them, so they take the registry DialogueRNN's (D_m 712,
+# the trimodal input; D_g = D_p = 500, D_e = D_h = 300), the CNN its own
+# defaults (embedding 300, 50 filters a width, 100 out, which is
+# DailyDialogue's D_m), E2E D_emb 300 and D_m 100, a 20,000-token vocabulary
+# and 32 words an utterance or a turn
+EXTRA_WIDTHS = (500, 500, 300, 300)  # D_g, D_p, D_e, D_h
+EXTRA_VOCAB, EXTRA_WORDS, DAILY_L = 20000, 32, 32
+E2E_D_EMB, E2E_D_M = 300, 100
+
+
+def extras_cases(np, torch):
+    """Phase 16's models: name -> a dict of ``build(generator)``, the CPU
+    ``inputs`` and forward ``kw``, ``pick`` (the output compared and
+    trained), ``valid`` (its valid rows, or None for all), ``loss(out)``
+    and ``evals`` (``(label, config)``: the model rebuilt with ``config``
+    for an eval alone)."""
+    from ser_tpu_torch.data.synthetic import synthetic_batch
+    from ser_tpu_torch.models import dialogue_rnn_extras as X
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.train.losses import masked_mse_loss, masked_nll_loss
+
+    rng = np.random.default_rng(16)
+    batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    x, qmask, umask = (torch.as_tensor(a) for a in get_model_spec("DialogueRNN").make_inputs(batch))
+    labels = torch.as_tensor(batch["label"]).long()
+    daily = synthetic_batch(L=DAILY_L, B=TRAIN_B, seed=3, min_len=8)
+    d_qmask, d_umask = torch.as_tensor(daily["qmask"]), torch.as_tensor(daily["umask"])
+    d_ids = torch.as_tensor(rng.integers(0, EXTRA_VOCAB, (DAILY_L, TRAIN_B, EXTRA_WORDS)))
+    d_labels = torch.as_tensor(rng.integers(0, 7, (TRAIN_B, DAILY_L)))
+    turns = tuple(torch.as_tensor(rng.integers(0, EXTRA_VOCAB, (EXTRA_WORDS, TRAIN_B)))
+                  for _ in range(3))
+    words = torch.as_tensor(rng.standard_normal((EXTRA_VOCAB, E2E_D_EMB)).astype(np.float32))
+    e_labels = torch.as_tensor(rng.integers(0, 7, TRAIN_B))
+    target = torch.as_tensor(rng.standard_normal(TRAIN_B * TRAIN_L).astype(np.float32))
+
+    def nll_rows(out, lab, mask):  # [L, B, C] batch-major against [B, L]
+        rows = out.transpose(0, 1).reshape(-1, out.shape[-1])
+        return masked_nll_loss(rows, lab.to(out.device).reshape(-1), mask.to(out.device))
+
+    def turn_nll(out):
+        return masked_nll_loss(out, e_labels.to(out.device), out.new_ones(TRAIN_B))
+
+    ident = lambda o: o  # noqa: E731
+    return {
+        "DialogueRNNModel": dict(
+            build=lambda g, **c: X.DialogueRNNModel(712, *EXTRA_WIDTHS, n_classes=6, generator=g,
+                                                    **c),
+            inputs=(x, qmask, umask), kw=dict(att2=True), pick=ident, valid=umask.T > 0,
+            loss=lambda o: nll_rows(o, labels, umask),
+            evals=(("att2 off", None, dict(att2=False)), ("att2", None, dict(att2=True)),
+                   ("general2, listener state, att2",
+                    dict(context_attention="general2", listener_state=True), dict(att2=True)))),
+        "AVECModel": dict(
+            build=lambda g, **c: X.AVECModel(712, *EXTRA_WIDTHS, generator=g, **c),
+            inputs=(x, qmask), kw={}, pick=ident, valid=umask.reshape(-1) > 0,
+            loss=lambda o: masked_mse_loss(o, target.to(o.device), umask.to(o.device).reshape(-1)),
+            evals=(("", None, {}),)),
+        "DailyDialogueModel": dict(
+            build=lambda g, **c: X.DailyDialogueModel(100, *EXTRA_WIDTHS, vocab_size=EXTRA_VOCAB,
+                                                      generator=g, **c),
+            inputs=(d_ids, d_qmask, d_umask), kw={}, pick=lambda o: o[0], valid=d_umask.T > 0,
+            loss=lambda o: nll_rows(o, d_labels, d_umask), evals=(("att2", None, {}),)),
+        "E2EModel": dict(
+            build=lambda g, **c: X.E2EModel(E2E_D_EMB, E2E_D_M, *EXTRA_WIDTHS, generator=g, **c),
+            inputs=(*turns, words), kw=dict(att2=True), pick=ident, valid=None, loss=turn_nll,
+            evals=(("att2", None, dict(att2=True)),)),
+        "BiE2EModel": dict(
+            build=lambda g, **c: X.BiE2EModel(E2E_D_EMB, E2E_D_M, *EXTRA_WIDTHS,
+                                              vocab_size=EXTRA_VOCAB, generator=g, **c),
+            inputs=turns, kw=dict(att2=True), pick=ident, valid=None, loss=turn_nll,
+            evals=(("att2", None, dict(att2=True)),)),
+    }
+
+
+def seeded_pair(torch, case, config=None):
+    """The case's model on the CPU and on the card with the same seeded
+    weights, carried through the JAX package's names (``to_jax_params``,
+    ``from_jax_params``) and loaded strictly."""
+    from ser_tpu_torch.compat.from_jax import from_jax_params, to_jax_params
+    from ser_tpu_torch.ops.init import generator
+
+    config = config or {}
+    weights = from_jax_params(to_jax_params(case["build"](generator(0), **config).state_dict()))
+    pair = {}
+    for dev in ("cpu", "cuda"):
+        model = case["build"](generator(1), **config)
+        model.load_state_dict(weights, strict=True)
+        pair[dev] = model.to(dev)
+    return pair
+
+
+def extras_step(torch, model, case, inputs, generator):
+    """One train step of a phase 16 model on ``inputs`` (on its device):
+    forward, loss, backward, the port's Adam at TRAIN_LR; returns the
+    loss."""
+    from ser_tpu_torch.train.optim import torch_adam
+
+    out = case["pick"](model(*inputs, **case["kw"], generator=generator))
+    loss = case["loss"](out)
+    loss.backward()
+    torch_adam(model.parameters(), lr=TRAIN_LR).step()
+    return loss
+
+
+def kept_fractions(torch, fn):
+    """Calls ``fn`` with every dropout of the port recorded: ``{rate: (live
+    entries drawn, kept)}``, counted where the input was nonzero."""
+    from ser_tpu_torch.models import dialogue_rnn
+    from ser_tpu_torch.ops import layers
+
+    real, drawn = layers.dropout, {}
+
+    def recording(x, p, generator):
+        out = real(x, p, generator)
+        live = x != 0
+        n, k = drawn.get(p, (0, 0))
+        drawn[p] = (n + int(live.sum()), k + int((live & (out != 0)).sum()))
+        return out
+
+    layers.dropout = dialogue_rnn.dropout = recording
+    try:
+        fn()
+    finally:
+        layers.dropout = dialogue_rnn.dropout = real
+    return drawn
+
+
+def extras_phase(torch, card, cli_res, cli_report, onlysp_request_ms, onlysp_step_ms,
+                 eval_batch, meld_path):
+    """Phase 16 (the module docstring)."""
+    import copy
+
+    import numpy as np
+
+    from ser_tpu_torch import analysis
+    from ser_tpu_torch.data import loaders
+    from ser_tpu_torch.data.collate import collate, collate_ref
+    from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
+    from ser_tpu_torch.models.registry import get_model_spec
+    from ser_tpu_torch.ops.kernels import reset_launches
+    from ser_tpu_torch.ops.layers import Dropout
+    from ser_tpu_torch.serving import Predictor
+    from ser_tpu_torch.train.trainer import ModelTrainer
+    from ser_tpu_torch.utils.flops import count_flops, efficiency
+
+    # (a), (b) the six extras, card against CPU, then their times
+    for name, case in extras_cases(np, torch).items():
+        t0 = time.perf_counter()
+        for label, config, kw in case["evals"]:
+            pair = seeded_pair(torch, case, config)
+            reset_launches()
+            with torch.inference_mode():
+                outs = {d: case["pick"](m.eval()(*(a.to(d) for a in case["inputs"]), **kw))
+                        for d, m in pair.items()}
+            no_port_kernel(torch, f"{name} {label}")
+            out, ref = outs["cuda"].cpu(), outs["cpu"]
+            check(out.shape == ref.shape and torch.isfinite(out).all().item(),
+                  f"{name} {label}: non-finite or misshapen outputs")
+            if case["valid"] is not None:
+                out, ref = out[case["valid"]], ref[case["valid"]]
+            print(f"[extras] {name} {label} {list(case['inputs'][0].shape)}: no port kernel "
+                  f"launched, max|gpu-cpu| {(out - ref).abs().max().item():.3e} over "
+                  f"{len(out)} valid rows, max|out| {ref.abs().max().item():.3e}")
+            check(torch.allclose(out, ref, rtol=1e-3, atol=1e-4),
+                  f"{name} {label}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        # one step, dropout off, card against CPU; the card replays the
+        # CPU's ReLU decisions (PinnedRelu), the flips counted and bounded
+        pair = seeded_pair(torch, case)
+        start = {k: v.clone() for k, v in pair["cpu"].state_dict().items()}
+        loss = {}
+        reset_launches()
+        with PinnedRelu(torch) as relu:
+            for d, m in pair.items():  # the CPU first, then the card
+                no_dropout(m.train(), Dropout)
+                loss[d] = extras_step(torch, m, case, [a.to(d) for a in case["inputs"]],
+                                      torch.Generator(device=d)).item()
+                relu.replay()
+        no_port_kernel(torch, f"{name} check step")
+        worst, dead_cpu, dead_card = grad_check(torch, pair["cpu"], pair["cuda"])
+        moved = max((p.detach().cpu() - q.detach()).abs().max().item() for p, q in zip(
+            pair["cuda"].parameters(), pair["cpu"].parameters()))
+        loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        print(f"[extras] {name} one step card vs CPU (dropout off, the CPU's ReLU decisions): "
+              f"|loss| rel {loss_rel:.3e}, gradients {worst:.3f} of the tolerance, "
+              f"{len(dead_card)} parameters with no gradient, max |param card - CPU| after Adam "
+              f"{moved / TRAIN_LR:.3f} lr; {relu.flips} of {relu.total} ReLU decisions replaced")
+        check(relu.flips <= 1e-5 * relu.total, f"{name}: the card's forward crossed "
+              f"{relu.flips} ReLU kinks, more than rounding explains")
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{name} step loss: card and CPU disagree")
+        check(worst <= 1.0, f"{name} step gradients: card and CPU disagree")
+        check(dead_cpu == dead_card, f"{name} dead parameters: CPU {sorted(dead_cpu)}, card "
+              f"{sorted(dead_card)}")
+        check(moved <= 2.05 * TRAIN_LR, f"{name} Adam updates: card and CPU differ")
+        del pair, start
+
+        # one step with dropout on (the card): finite, each rate's kept
+        # fraction within 6 standard deviations of 1 - p
+        model = case["build"](torch.Generator().manual_seed(0)).cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        inputs = [a.cuda() for a in case["inputs"]]
+        losses = []
+        drawn = kept_fractions(torch, lambda: losses.append(
+            extras_step(torch, model, case, inputs, gen).item()))
+        line = []
+        for p, (n, k) in sorted(drawn.items()):
+            line.append(f"p {p}: {k / n:.5f} kept of {n}")
+            check(abs(k / n - (1 - p)) < 6 * math.sqrt(p * (1 - p) / n),
+                  f"{name}: dropout {p} kept {k / n:.5f} of {n}")
+        check(math.isfinite(losses[0]) and drawn, f"{name}: dropout step loss {losses}")
+        print(f"[extras] {name} step with dropout on: loss {losses[0]:.5f}; " + "; ".join(line))
+
+        # (b) a request (inputs on the card, the output copied out) and a
+        #     step on the card: median ms, launches, idle, peak memory
+        model.eval()
+
+        def request():
+            with torch.inference_mode():
+                return case["pick"](model(*inputs, **case["kw"])).cpu()
+
+        req_ms = cuda_ms(torch, request, warmup=2, iters=10)
+        wall, busy, events = device_profile(torch, request, 1)
+        n_req, _, _ = kernel_split(events, 1)
+        req_idle = 100 * (1 - busy / wall)
+        model.train()
+        step = lambda: extras_step(torch, model, case, inputs, gen)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(torch, step, warmup=0, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, events = device_profile(torch, step, 1)
+        n_step, _, _ = kernel_split(events, 1)
+        print(f"[time] {card} | {name} {list(case['inputs'][0].shape)}: request "
+              f"{req_ms:.3f} ms (median of 10), {n_req:.0f} kernel launches, idle "
+              f"{req_idle:.1f}%; step {step_ms:.2f} ms (median of 3), {n_step:.0f} launches, "
+              f"idle {100 * (1 - busy / wall):.1f}%, peak {peak:.4f} GiB ({peak - held:.4f} "
+              f"above what was held before the step); {time.perf_counter() - t0:.1f} s")
+        del model, gen, step, inputs
+
+    # (c) the C collate: the loaders' batches through it bit-equal to the
+    #     numpy version, IEMOCAP and MELD; host ms of a [110, 80] batch
+    real_collate, compared = loaders.collate, []
+
+    def both(items, **kw):
+        got = real_collate(items, **kw)
+        want = collate_ref(items, **kw)
+        same = sorted(got) == sorted(want) and got["vid"] == want["vid"] and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in got if k != "vid")
+        compared.append(same)
+        return got
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_collate_") as tmp:
+        iemocap_path = generate_iemocap_pickles(tmp, seed=PREDICT_SEED)
+        loaders.collate = both
+        try:
+            for path, dataset, n_classes in ((iemocap_path, "IEMOCAP", 6),
+                                             (meld_path, "MELD", 7)):
+                for loader in loaders.get_loaders(path, dataset, batch_size=TRAIN_B,
+                                                  n_classes=n_classes):
+                    for _ in loader:
+                        pass
+        finally:
+            loaders.collate = real_collate
+        train_set = loaders.IEMOCAPDataset(
+            path=iemocap_path + "IEMOCAP_features/IEMOCAP_features_raw.pkl")
+        items = [train_set[i] for i in range(TRAIN_B)]
+    check(compared and all(compared), f"C collate differs from numpy on "
+          f"{compared.count(False)} of {len(compared)} loader batches")
+    host, L_c = {}, max([TRAIN_L] + [it[8].shape[0] for it in items])
+    for way, fn in (("C", collate), ("numpy", collate_ref), ("C", collate),
+                    ("numpy", collate_ref)):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn(items, pad_length=L_c, pad_batch=TRAIN_B)
+            times.append((time.perf_counter() - t0) * 1e3)
+        host.setdefault(way, []).append(statistics.median(times))
+    print(f"[collate] {card} | {len(compared)} loader batches (IEMOCAP and MELD, batch "
+          f"{TRAIN_B}) bit-equal through the C path and numpy; a [{L_c}, {TRAIN_B}] "
+          f"batch on the host (median of 10, in turns C, numpy, C, numpy): C {host['C']} ms, "
+          f"numpy {host['numpy']} ms")
+
+    # (d) FLOPs of onlysp's eval forward [82, 31] and train step [110, 80],
+    #     counted on the plain path on the CPU, against phases 5 and 8
+    x, qmask, umask = get_model_spec("MARN1_onlysp").make_inputs(eval_batch)
+    cpu = Predictor(seed=0, device="cpu")
+    with torch.inference_mode():
+        eval_flops = count_flops(cpu.model, *(torch.as_tensor(a) for a in (x, qmask, umask)))
+    trainer = ModelTrainer(device="cpu", seed=0, lr=TRAIN_LR)
+    train_batch = synthetic_batch(L=TRAIN_L, B=TRAIN_B, seed=1, min_len=min(20, TRAIN_L))
+    step_flops = count_flops(lambda: trainer._train_step_impl(train_batch, TRAIN_LR))
+    step_ms = statistics.median(onlysp_step_ms)
+    print(f"[flops] {card} | MARN1_onlysp eval forward {list(qmask.shape[:2])}: {eval_flops} "
+          f"FLOPs, {efficiency(eval_flops, onlysp_request_ms / 1e3)} at phase 5's request "
+          f"{onlysp_request_ms:.4f} ms; train step [{TRAIN_L}, {TRAIN_B}]: {step_flops} FLOPs, "
+          f"{efficiency(step_flops, step_ms / 1e3)} at phase 8's step {step_ms:.2f} ms")
+    check(eval_flops > 0 and step_flops > 0, "FLOP counts")
+    del cpu, trainer
+
+    # (e) analyze_res on phase 4c's res.csv: the predict CLI's Acc and F1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        res = Path(tmp) / "res.csv"
+        res.write_text(cli_res)
+        report = analysis.analyze_res(str(res))
+    print(f"[analysis] phase 4c's res.csv: {json.dumps(report)}")
+    check(report["weighted_accuracy"] == cli_report["weighted_accuracy"]
+          and report["weighted_f1"] == cli_report["weighted_f1"],
+          f"analyze_res gives {report['weighted_accuracy']}, {report['weighted_f1']}; the "
+          f"predict CLI {cli_report['weighted_accuracy']}, {cli_report['weighted_f1']}")
+
+
 def main() -> int:
     import torch
 
@@ -3214,7 +3550,8 @@ def main() -> int:
             reports[k] = json.loads(out[out.index("{"):])
         preds, labels, masks = read_res_csv(tmp / "cuda.csv")
         cpu_preds, cpu_labels, cpu_masks = read_res_csv(tmp / "cpu.csv")
-    rep = reports["cuda"]
+        cli_res = (tmp / "cuda.csv").read_text()  # phase 16 (e) reads it
+    rep = cli_report = reports["cuda"]
     print(f"[cli] cuda: {json.dumps(rep)}")
     print(f"[cli] cpu:  {json.dumps(reports['cpu'])}")
     valid = [i for i, m in enumerate(masks) if m > 0]
@@ -3773,6 +4110,12 @@ def main() -> int:
     tp_launches = tp_phase(torch, card, dp_steps)
     print(f"[tp] phase 15 in {time.perf_counter() - t0:.1f} s; launches by path: "
           f"{tp_launches}")
+
+    # 16. the DialogueRNN suite's extras, the C collate, FLOPs, analyze_res
+    t0 = time.perf_counter()
+    extras_phase(torch, card, cli_res, cli_report, predict_ms, step_ms["kernel"], eval_batch,
+                 meld_path)
+    print(f"[extras] phase 16 in {time.perf_counter() - t0:.1f} s")
     meld_tmp.cleanup()
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
                      "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}

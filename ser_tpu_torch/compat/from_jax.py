@@ -33,6 +33,15 @@ two names (nsps's ``fc.0`` is the module ``fc_0``, newz's and MARN's the
 leaf ``fc_0_kernel``), and ``to_jax_params`` reads which from the whole
 state dict (``jax_layout``).
 
+The DialogueRNN suite's extras (``models/dialogue_rnn_extras.py``) add a
+unidirectional ``dialog_rnn`` beside ``dialog_rnn_f`` and ``dialog_rnn_r``,
+whose 'simple' attention ``attention_scalar_kernel [D_g, 1]`` is
+``dialogue_cell.attention.scalar.weight [1, D_g]``; a GRU's leaves
+(``turn_rnn/weight_ih_l0_kernel``) are named as an LSTM's; an embedding
+table (``embedding``, ``cnn_feat_extractor/embedding``) is the module's
+``embedding.weight``; and the text CNN's ``conv{K}_kernel [K, E, F]`` for
+K = 3, 4, 5 are ``convs.{K - 3}.weight [F, E, K]``.
+
 Under a zoo ``--encoder_attention`` kind an encoder's ``slf_attn`` holds
 ``op``, whose leaves are flat: ``mk`` and ``mv`` (``[D, S]``, ``[S, D]``),
 ``fc_q_kernel`` and ``fc_i_bias`` of the Linears, MUSE's ``dy_paras`` and
@@ -57,7 +66,13 @@ _RNN = re.compile(r"(gru_s|gru_l|lstm_q0|lstm_q1|lstm_s|lstm_la_l|lstm_la_a)_(ih
                   r"(kernel|bias)")
 _RANK1 = re.compile(r"(crossatt_l2a|crossatt_a2l)_(W[qkv])")
 # DialogueRNN's cell leaves under ``dialog_rnn_[fr]``, and an LSTM's
-_DRNN = re.compile(r"([gpel]_cell)_(ih|hh)_(kernel|bias)|attention_transform_(kernel|bias)")
+_DRNN = re.compile(r"([gpel]_cell)_(ih|hh)_(kernel|bias)|attention_(transform|scalar)_"
+                   r"(kernel|bias)")
+_DRNN_HEADS = ("dialog_rnn", "dialog_rnn_f", "dialog_rnn_r")
+# the text CNN's convolutions, by kernel width (CNNFeatureExtractor's
+# kernel_sizes), and their module index
+_CNN_WIDTHS = (3, 4, 5)
+_CNN = re.compile(r"conv([345])_(kernel|bias)")
 _LSTM = re.compile(r"weight_(ih|hh)_l0(_reverse)?_(kernel|bias)")
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _SCALARS = ("w", "v", "v1", "v2", "p")
@@ -91,8 +106,14 @@ def _convert(name: str, value: np.ndarray):
     """``(torch key, value in torch layout)`` for one flat JAX name."""
     head, _, leaf = name.rpartition("/")
     t = lambda kind: value.T if kind == "kernel" else value  # noqa: E731
+    dot = f"{head}." if head else ""
+    if head in ("", "cnn_feat_extractor") and leaf == "embedding":
+        return f"{dot}embedding.weight", value
+    if head in ("", "cnn_feat_extractor") and (m := _CNN.fullmatch(leaf)):
+        width, kind = m.groups()
+        key = f"{dot}convs.{_CNN_WIDTHS.index(int(width))}.{_LEAF[kind]}"
+        return key, value.transpose(2, 1, 0) if kind == "kernel" else value
     if head in ("marn_cell_f", "marn_cell_b", ""):
-        dot = f"{head}." if head else ""
         if m := _LSTHM.fullmatch(leaf):
             mod, mat, kind = m.groups()
             return f"{dot}{mod}.{mat}.{_LEAF[kind]}", t(kind)
@@ -107,12 +128,12 @@ def _convert(name: str, value: np.ndarray):
             return f"{mod}.{idx + '.' if idx else ''}{_LEAF[kind]}", t(kind)
         if not head and leaf in _SCALARS:
             return leaf, value
-    elif head in ("dialog_rnn_f", "dialog_rnn_r") and (m := _DRNN.fullmatch(leaf)):
-        cell, side, kind, att_kind = m.groups()
+    elif head in _DRNN_HEADS and (m := _DRNN.fullmatch(leaf)):
+        cell, side, kind, att, att_kind = m.groups()
         if cell:
             return f"{head}.dialogue_cell.{cell}.{_LEAF[kind]}_{side}", t(kind)
-        return f"{head}.dialogue_cell.attention.transform.{_LEAF[att_kind]}", t(att_kind)
-    elif head in ("lstm_l", "lstm_a") and (m := _LSTM.fullmatch(leaf)):
+        return f"{head}.dialogue_cell.attention.{att}.{_LEAF[att_kind]}", t(att_kind)
+    elif head in ("lstm_l", "lstm_a", "turn_rnn") and (m := _LSTM.fullmatch(leaf)):
         side, rev, kind = m.groups()
         return f"{head}.{_LEAF[kind]}_{side}_l0{rev or ''}", t(kind)
     elif head.endswith("slf_attn/op") and (m := _ZOO.fullmatch(leaf)):
@@ -165,9 +186,11 @@ _KEY_SEQ_ATT = re.compile(r"(crossatt_\w+)\.(W[qkv])")
 _KEY_ROOT_LINEAR = re.compile(r"(S|att|att_l|att_a|att_cross_modal|fc_z|fc|g_attention\.trans|"
                               r"reduce_dim_nn_[lav]|matchatt\.transform)(?:\.(\d+))?\."
                               r"(weight|bias)")
-_KEY_DRNN = re.compile(r"(dialog_rnn_[fr])\.dialogue_cell\.(?:([gpel]_cell)\.(weight|bias)_"
-                       r"(ih|hh)|attention\.transform\.(weight|bias))")
-_KEY_LSTM = re.compile(r"(lstm_[la])\.(weight|bias)_(ih|hh)_l0(_reverse)?")
+_KEY_DRNN = re.compile(r"(dialog_rnn(?:_[fr])?)\.dialogue_cell\.(?:([gpel]_cell)\.(weight|bias)_"
+                       r"(ih|hh)|attention\.(transform|scalar)\.(weight|bias))")
+_KEY_LSTM = re.compile(r"(lstm_[la]|turn_rnn)\.(weight|bias)_(ih|hh)_l0(_reverse)?")
+_KEY_CNN = re.compile(r"(?:(cnn_feat_extractor)\.)?(?:(embedding)\.weight|convs\.([012])\."
+                      r"(weight|bias))")
 _KEY_JOINED = re.compile(  # whole dotted segments only
     r"(?<![^.])(?:(nn_out|fc|fc2)\.(\d+)|(marn_cell_[fb])\.(encoder_[la]))(?![^.])")
 _KEY_SEQ_JOINED = re.compile(r"(?<![^.])(nn_out|fc|fc2)\.(\d+)(?![^.])")
@@ -199,10 +222,17 @@ def to_jax_leaf(key: str, v: np.ndarray, layout: str = "flat"):
         cell, rnn, leaf, side = m.groups()
         return f"{cell}/{rnn}_{side}_{kind[leaf]}", v.T if leaf == "weight" else v
     if m := _KEY_DRNN.fullmatch(key):
-        head, cell, leaf, side, att_leaf = m.groups()
+        head, cell, leaf, side, att, att_leaf = m.groups()
         if cell:
             return f"{head}/{cell}_{side}_{kind[leaf]}", v.T if leaf == "weight" else v
-        return f"{head}/attention_transform_{kind[att_leaf]}", v.T if att_leaf == "weight" else v
+        return f"{head}/attention_{att}_{kind[att_leaf]}", v.T if att_leaf == "weight" else v
+    if m := _KEY_CNN.fullmatch(key):
+        head, emb, idx, leaf = m.groups()
+        head = f"{head}/" if head else ""
+        if emb:
+            return f"{head}embedding", v
+        name = f"{head}conv{_CNN_WIDTHS[int(idx)]}_{kind[leaf]}"
+        return name, v.transpose(2, 1, 0) if leaf == "weight" else v
     if m := _KEY_LSTM.fullmatch(key):
         mod, leaf, side, rev = m.groups()
         return (f"{mod}/weight_{side}_l0{rev or ''}_{kind[leaf]}",

@@ -1,5 +1,6 @@
 """IEMOCAP and MELD readers for the reference pickle schemas (counterparts
-of ``ser_tpu/data/datasets.py::IEMOCAPDataset`` and ``MELDDataset``).
+of ``ser_tpu/data/datasets.py::IEMOCAPDataset``, ``MELDDataset`` and
+``IEMOCAPRobertaCometDataset``).
 
 - Main pickle: 9-tuple (videoIDs, videoSpeakers, videoLabels, videoText,
   videoAudio, videoVisual, videoSentence, trainVid, testVid).
@@ -20,6 +21,12 @@ the main pickle by default. Items have 10 fields in the IEMOCAP order, with
 the 600-d text feature in the visual slot, the 300-d audio in the audio slot
 and the 9-party one-hot speakers as qmask; the labels are the 7 emotions or,
 at 3 classes, the sentiments (the main pickle's ninth field).
+
+``IEMOCAPRobertaCometDataset`` reads the RoBERTa pickle and a COMET pickle
+of nine relation tables ({vid: [n_utt, D]} each, in ``COMET_KEYS`` order) for
+one split, ``train``, ``test`` or ``valid``; its items have 17 fields (r1..r4,
+the nine relations, qmask, umask, label, vid). No loader or CLI uses it, in
+either package.
 """
 
 from __future__ import annotations
@@ -123,5 +130,48 @@ class MELDDataset:
             _f32(self.videoSpeakers[vid]),
             np.ones(n, dtype=np.float32),
             np.asarray(self.videoLabels[vid], dtype=np.int32),
+            vid,
+        )
+
+
+class IEMOCAPRobertaCometDataset:
+    """RoBERTa views and the nine COMET relation tables of one split (ref
+    ``dataloader.py:95-143``): 17-field items. Another split raises
+    ``ValueError``."""
+
+    N_FIELDS = 17
+    COMET_KEYS = ("xIntent", "xAttr", "xNeed", "xWant", "xEffect", "xReact",
+                  "oWant", "oEffect", "oReact")
+
+    def __init__(self, split, roberta_path, comet_path):
+        with open(roberta_path, "rb") as f:
+            (self.speakers, self.labels, self.roberta1, self.roberta2,
+             self.roberta3, self.roberta4, self.sentences, self.trainIds,
+             self.testIds, self.validIds) = pickle.load(f, encoding="latin1")
+        with open(comet_path, "rb") as f:
+            comet = pickle.load(f, encoding="latin1")
+        for name, table in zip(self.COMET_KEYS, comet):
+            setattr(self, name, table)
+        ids = {"train": self.trainIds, "test": self.testIds, "valid": self.validIds}
+        if split not in ids:
+            raise ValueError(f"unknown split: {split}")
+        self.keys = list(ids[split])
+
+    def __len__(self):
+        return len(self.keys)
+
+    def __getitem__(self, index):
+        vid = self.keys[index]
+        qmask = _f32([[1, 0] if x == "M" else [0, 1] for x in self.speakers[vid]])
+        n = len(self.labels[vid])
+        return (
+            _f32(self.roberta1[vid]),
+            _f32(self.roberta2[vid]),
+            _f32(self.roberta3[vid]),
+            _f32(self.roberta4[vid]),
+            *(_f32(getattr(self, k)[vid]) for k in self.COMET_KEYS),
+            qmask,
+            np.ones(n, dtype=np.float32),
+            np.asarray(self.labels[vid], dtype=np.int32),
             vid,
         )

@@ -3,8 +3,8 @@
 
 The valid split is the first ``valid`` fraction of the train set's
 unshuffled index order; train and valid iterate shuffled, test in order.
-Loaders yield padded batch dicts (``collate.py``), assembled with numpy on
-the host; ``PrefetchLoader`` keeps a few ready in a background thread while
+Loaders yield padded batch dicts (``collate.py``), assembled on the host by
+the C collate; ``PrefetchLoader`` keeps a few ready in a background thread while
 the device computes. ``advance_epochs`` burns the shuffle randomness of
 finished epochs, so a resumed run sees the batch order of the run that was
 never stopped.
@@ -25,19 +25,20 @@ import threading
 
 import numpy as np
 
-from ser_tpu_torch.data.collate import collate
+from ser_tpu_torch.data.collate import DEFAULT_BUCKETS, collate
 from ser_tpu_torch.data.datasets import IEMOCAPDataset, MELDDataset
 from ser_tpu_torch.parallel.mesh import local_batch_slice
 
 
 class EpochLoader:
     """Iterates a dataset subset in batches, reshuffling each epoch; every
-    batch is padded to ``batch_size`` rows and L to its bucket. With
+    batch is padded to ``batch_size`` rows and L to its bucket in
+    ``buckets``. With
     ``process_count > 1`` a batch is this process's rows of the global one
     (``_local_rows``)."""
 
     def __init__(self, dataset, indices, batch_size, shuffle=True, seed=0,
-                 process_index=0, process_count=1):
+                 process_index=0, process_count=1, buckets=DEFAULT_BUCKETS):
         self.dataset = dataset
         self.indices = np.asarray(indices, dtype=np.int64)
         self.batch_size = batch_size
@@ -45,6 +46,7 @@ class EpochLoader:
         self.rng = np.random.default_rng(seed)
         self.rows = local_batch_slice(process_index, process_count)(batch_size)
         self.process_count = process_count
+        self.buckets = buckets
 
     def __len__(self):
         return int(np.ceil(len(self.indices) / self.batch_size))
@@ -66,7 +68,7 @@ class EpochLoader:
         for start in range(0, len(order), self.batch_size):
             items = [self.dataset[int(i)]
                      for i in order[start:start + self.batch_size]]
-            batch = collate(items, pad_batch=self.batch_size)
+            batch = collate(items, pad_batch=self.batch_size, buckets=self.buckets)
             yield self._local_rows(batch) if self.process_count > 1 else batch
 
     def _local_rows(self, batch):

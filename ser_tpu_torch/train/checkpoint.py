@@ -77,6 +77,46 @@ def _strip_torch(name):
     return name
 
 
+def load_torch_state_dict(path) -> dict:
+    """A reference torch checkpoint (``torch.save`` of a state dict, or of
+    a whole module) as ``{key: tensor}`` with each key's ``module.`` and
+    then ``model.`` prefix stripped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {_strip_torch(k): v for k, v in sd.items()}
+
+
+def place_torch(own_keys, sd: dict, log=print) -> dict:
+    """The entries of a stripped torch state dict ``sd`` that a model with
+    ``own_keys`` has, as f32 CPU tensors; prints ``<key> is not in the
+    checkpoint.`` for each of its keys ``sd`` lacks and ``<key> is not in
+    the model.`` for each key of ``sd`` it lacks (sorted)."""
+    for key in own_keys:
+        if key not in sd:
+            log(f"{key} is not in the checkpoint.")
+    for key in sorted(set(sd) - set(own_keys)):
+        log(f"{key} is not in the model.")
+    return {k: v.detach().to("cpu", torch.float32).contiguous()
+            for k, v in sd.items() if k in own_keys}
+
+
+def load_checked(model: torch.nn.Module, placed, log=print) -> list[str]:
+    """Load ``placed`` (``(name in the file, key, tensor)`` triples) into
+    ``model``, skipping with a print each tensor whose shape is not the
+    model's; returns the loaded keys."""
+    own = model.state_dict()
+    accepted = {}
+    for origname, key, tensor in placed:
+        if tuple(own[key].shape) != tuple(tensor.shape):
+            log(f"Wrong parameter length: {origname}, model: "
+                f"{tuple(own[key].shape)}, loaded: {tuple(tensor.shape)}")
+            continue
+        accepted[key] = tensor
+    model.load_state_dict(accepted, strict=False)
+    return sorted(accepted)
+
+
 def _atomic_savez(path, arrays: dict) -> None:
     """``np.savez`` of ``arrays`` to ``path`` through a temporary file,
     ``fsync`` and ``os.replace``: an interrupted save leaves the old file or
@@ -153,18 +193,11 @@ def load_parameters(model: torch.nn.Module, path, torch_format=False,
     """Load what fits of the checkpoint at ``path`` into ``model`` and
     return the state-dict keys that were loaded."""
     own = model.state_dict()
-    placed = []  # (name in the file, key, tensor)
     if torch_format:
-        loaded = {_strip_torch(k): v for k, v in torch.load(
-            path, map_location="cpu", weights_only=True).items()}
-        for key in own:
-            if key not in loaded:
-                log(f"{key} is not in the checkpoint.")
-        for key in sorted(set(loaded) - set(own)):
-            log(f"{key} is not in the model.")
-        placed = [(k, k, v.detach().to("cpu", torch.float32).contiguous())
-                  for k, v in loaded.items() if k in own]
+        placed = [(k, k, v) for k, v in place_torch(
+            own, load_torch_state_dict(path), log).items()]
     else:
+        placed = []  # (name in the file, key, tensor)
         with np.load(path, allow_pickle=False) as z:
             loaded = {k: z[k] for k in z.files}
         for origname, value in loaded.items():
@@ -173,12 +206,4 @@ def load_parameters(model: torch.nn.Module, path, torch_format=False,
                 log(f"{origname} is not in the model.")
             else:
                 placed.append((origname, *found))
-    accepted = {}
-    for origname, key, tensor in placed:
-        if tuple(own[key].shape) != tuple(tensor.shape):
-            log(f"Wrong parameter length: {origname}, model: "
-                f"{tuple(own[key].shape)}, loaded: {tuple(tensor.shape)}")
-            continue
-        accepted[key] = tensor
-    model.load_state_dict(accepted, strict=False)
-    return sorted(accepted)
+    return load_checked(model, placed, log)

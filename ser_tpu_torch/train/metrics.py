@@ -1,10 +1,10 @@
-"""Evaluation metrics: mask-weighted accuracy and weighted F1 (counterpart
-of ``ser_tpu/train/metrics.py``).
+"""Evaluation metrics: mask-weighted accuracy, weighted F1 and top-k
+accuracy (counterpart of ``ser_tpu/train/metrics.py``).
 
 The reference's sklearn calls ``accuracy_score(labels, preds,
 sample_weight=masks)`` and ``f1_score(..., average='weighted',
-sample_weight=masks)``, both scaled by 100 and rounded to 2 decimals, in
-numpy.
+sample_weight=masks)``, both scaled by 100 and rounded to 2 decimals, and
+its ``utils.py::accuracy`` (precision@k), in numpy.
 """
 
 from __future__ import annotations
@@ -21,6 +21,16 @@ def weighted_accuracy(labels, preds, masks) -> float:
         return 0.0
     correct = ((labels == preds).astype(np.float64) * masks).sum()
     return round(float(correct / total) * 100, 2)
+
+
+def topk_accuracy(output, target, topk=(1,)):
+    """Precision@k (ref ``utils.py:107-120``): output ``[N, C]`` scores,
+    target ``[N]``; a percentage for each k, rounded to 4 decimals."""
+    output = np.asarray(output)
+    target = np.asarray(target)
+    pred = np.argsort(-output, axis=1)[:, :max(topk)]  # best first
+    correct = pred == target[:, None]
+    return [round(float(correct[:, :k].any(axis=1).mean()) * 100, 4) for k in topk]
 
 
 def weighted_f1(labels, preds, masks) -> float:
