@@ -268,6 +268,31 @@ Phases, each fatal on failure:
     ``efficiency`` against phases 5's request and 8's step; (e)
     ``analysis.analyze_res`` on phase 4c's ``res.csv`` gives the predict
     CLI's accuracy and F1.
+17. the train CLI's ``--eval`` score header, ``ModelTrainer``'s ``h.csv``, the
+    two user scripts and the attention zoo's other 20 classes: (a) ``python
+    -m ser_tpu_torch.train --eval True`` on a seeded onlysp checkpoint in this
+    process on the card and on the CPU: ``score.txt`` byte-equal to
+    ``train.py``'s header, the recurrence kernel launched; ``ModelTrainer(
+    legacy_h_csv_path=)``'s eval of the same split on both: ``h.csv`` holds
+    ``res.csv``'s rows as ``trues,preds,masks``, its labels and masks equal
+    and its predictions agreeing on 99.9% of valid rows; (b) ``python -m
+    ser_tpu_torch.scripts.compare_artifacts`` on phase 12's f32, bf16 and
+    int8 onlysp artifacts (the bf16 drift under 0.5, the int8 agreement at
+    least 0.9), its figures those of ``ServingModel`` on the same batch
+    computed here, the recurrence kernel launched at each artifact's first
+    request (two warm-ups and a replay); (c) ``python -m
+    ser_tpu_torch.scripts.convergence_bf16 --models MARN1_onlysp --seeds 1
+    --epochs 1``: the JAX script's document keys, the rank-1 kernel 2T times
+    a step of the f32 run and its bf16 form 2T times a step of the bf16 run,
+    the recurrence kernel once a test batch of each eval; (d) each of the 20
+    classes at the JAX class's default widths, batch 50 (NCHW [50, 512, 7,
+    7]; sequences [50, 49, 512], UFO and EMSA with 8 heads of 64), weights
+    redrawn from a seed: a forward, and a forward with the backward of a
+    fixed weighted sum, on the card against the CPU (rtol 1e-3, atol 1e-4;
+    the gradients of the input and of every parameter at the train-step
+    contract), the card replaying the CPU's ReLU decisions (``PinnedRelu``),
+    every kernel counter 0; ms a forward and a forward with its backward
+    (median of 10).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -1708,10 +1733,11 @@ def serve_run_card_and_cpu(torch, what, artifact, card_flags, cpu_flags):
     return run_launches[NAME]
 
 
-def serving_phase(torch, card, eval_batch, meld_path):
-    """Phase 12 (the module docstring). Returns the recurrence kernel's and
-    the rank-1 kernel's launches by path, each counted from 0 just before
-    its run."""
+def serving_phase(torch, card, eval_batch, meld_path, keep_dir):
+    """Phase 12 (the module docstring); the onlysp f32, bf16 and int8
+    artifacts are written into ``keep_dir`` (phase 17 reads them). Returns
+    the recurrence kernel's and the rank-1 kernel's launches by path, each
+    counted from 0 just before its run."""
     import numpy as np
 
     from ser_tpu_torch import serve as serve_cli
@@ -1740,7 +1766,7 @@ def serving_phase(torch, card, eval_batch, meld_path):
     gpu = Predictor(seed=0, device="cuda")
     randomize_constants(torch, [gpu.model], seed=3)
     weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
-    paths = {d: str(tmp / f"onlysp_{d}.ser") for d in ("f32", "bf16", "int8")}
+    paths = {d: str(Path(keep_dir) / f"onlysp_{d}.ser") for d in ("f32", "bf16", "int8")}
     for dtype, path in paths.items():
         save_model(path, "MARN1_onlysp", weights, SERVE_L, SERVE_B, dtype=dtype)
     sizes = {d: os.path.getsize(p) for d, p in paths.items()}
@@ -3260,6 +3286,283 @@ def extras_phase(torch, card, cli_res, cli_report, onlysp_request_ms, onlysp_ste
           f"predict CLI {cli_report['weighted_accuracy']}, {cli_report['weighted_f1']}")
 
 
+# phase 17: the train CLI's --eval score header, ModelTrainer's h.csv, the
+# two user scripts, and the attention zoo's 20 classes no flag reaches, at
+# the JAX classes' default widths on a batch of 50 (the vendored modules'
+# own examples: NCHW [50, 512, 7, 7], sequences [50, 49, 512]). UFO and
+# EMSA have no default heads: 8 of 64, the encoder zoo's rule at 512
+ZOO_B, ZOO_C, ZOO_HW, ZOO_HEADS = 50, 512, 7, 8
+ZOO_ITERS = 10
+CONVERGENCE_ARGS = ["--models", "MARN1_onlysp", "--seeds", "1", "--epochs", "1"]
+
+
+def zoo_classes(torch):
+    """name -> (port module from a generator, input on the CPU, sequence op)."""
+    from ser_tpu_torch.ops import attention_zoo as Z
+
+    C, n, h = ZOO_C, ZOO_HW * ZOO_HW, ZOO_HEADS
+    nchw = torch.randn(ZOO_B, C, ZOO_HW, ZOO_HW, generator=torch.Generator().manual_seed(17))
+    seq = torch.randn(ZOO_B, n, C, generator=torch.Generator().manual_seed(18))
+    cases = {
+        "SEAttention": lambda g: Z.SEAttention(C, generator=g),
+        "ECAAttention": lambda g: Z.ECAAttention(generator=g),
+        "CBAMChannelGate": lambda g: Z.CBAMChannelGate(C, generator=g),
+        "CBAMSpatialGate": lambda g: Z.CBAMSpatialGate(generator=g),
+        "CBAMBlock": lambda g: Z.CBAMBlock(C, generator=g),
+        "SpatialGroupEnhance": lambda g: Z.SpatialGroupEnhance(generator=g),
+        "CoordAttention": lambda g: Z.CoordAttention(C, C, generator=g),
+        "TripletAttention": lambda g: Z.TripletAttention(generator=g),
+        "ShuffleAttention": lambda g: Z.ShuffleAttention(C, generator=g),
+        "SKAttention": lambda g: Z.SKAttention(C, generator=g),
+        "BAMBlock": lambda g: Z.BAMBlock(C, generator=g),
+        "PSA": lambda g: Z.PSA(C, generator=g),
+        "CoTAttention": lambda g: Z.CoTAttention(C, generator=g),
+        "DoubleAttention": lambda g: Z.DoubleAttention(C, 128, 128, generator=g),
+        "DAModule": lambda g: Z.DAModule(C, 3, ZOO_HW, ZOO_HW, generator=g),
+        "PolarizedSelfAttention": lambda g: Z.PolarizedSelfAttention(C, generator=g),
+        "PolarizedSelfAttention sequential": lambda g: Z.PolarizedSelfAttention(
+            C, True, generator=g),
+        "S2Attention": lambda g: Z.S2Attention(C, generator=g),
+    }
+    out = {name: (build, nchw, False) for name, build in cases.items()}
+    out["AFTFull"] = (lambda g: Z.AFTFull(C, n, generator=g), seq, False)
+    out["UFOAttention"] = (lambda g: Z.UFOAttention(C, C // h, C // h, h, generator=g),
+                           seq, True)
+    out["EMSA"] = (lambda g: Z.EMSA(C, C // h, C // h, h, ZOO_HW, ZOO_HW, generator=g),
+                   seq, True)
+    return out
+
+
+def randomize_zoo(torch, module, seed):
+    """Every parameter and statistic of a zoo module drawn anew, so that no
+    nonlinearity sits at its init's linear or constant point: a matrix or
+    kernel N(0, 1/fan_in), a running variance in [0.5, 1.5), a norm's
+    weight 1 + N(0, 0.1²), a running mean N(0, 0.1²), any other vector
+    N(0, 0.5²)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            z = torch.randn(t.shape, generator=g)
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif t.ndim >= 2:
+                t.copy_(z / math.sqrt(t.numel() / t.shape[0]))
+            elif name.endswith("running_mean"):
+                t.copy_(0.1 * z)
+            elif name.endswith("weight"):
+                t.copy_(1.0 + 0.1 * z)
+            else:
+                t.copy_(0.5 * z)
+
+
+def tools_zoo_phase(torch, card, weights, artifacts):
+    """Phase 17 (the module docstring). ``weights``: phase 4's onlysp state
+    dict; ``artifacts``: phase 12's f32, bf16 and int8 onlysp artifacts.
+    Returns the launches of the recurrence kernel and of both rank-1 forms
+    by path, each counted from 0 just before its run."""
+    import numpy as np
+
+    from ser_tpu_torch.compat.from_jax import to_jax_params
+    from ser_tpu_torch.data.loaders import get_loaders
+    from ser_tpu_torch.data.synthetic import generate_iemocap_pickles, synthetic_batch
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.ops.kernels.rank1 import NAME as RANK1, NAME_BF16 as RANK1_BF16
+    from ser_tpu_torch.scripts import compare_artifacts, convergence_bf16
+    from ser_tpu_torch.serving import GRAPH_WARMUP, ServingModel
+    from ser_tpu_torch.train import __main__ as train_cli
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    launches = {NAME: {}, RANK1: {}, RANK1_BF16: {}}
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_tools_")
+    tmp = Path(tmp_dir.name)
+
+    # (a) train --eval True on the card and on the CPU: score.txt's header;
+    #     ModelTrainer's h.csv beside res.csv, card against CPU
+    t0 = time.perf_counter()
+    ckpt = tmp / "onlysp.npz"
+    np.savez(ckpt, **to_jax_params(weights))
+    pickles = generate_iemocap_pickles(str(tmp / "pickles"), seed=PREDICT_SEED)
+    scores, cli_path = {}, "train --eval True, the test split at batch 80"
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        argv = ["--eval", "True", "--initial_model", str(ckpt), "--feature_path", pickles,
+                "--save_path", str(tmp / dev), "--num_workers", "0", "--device", dev]
+        out = in_dir(tmp, run_quiet, train_cli.main, train_cli.parser_args(argv))
+        if dev == "cuda":
+            launches[NAME][cli_path] = LAUNCHES[NAME]
+        scores[dev] = (tmp / dev / "score.txt").read_bytes()
+        check("Acc " in out and "is not in the model" not in out,
+              f"train --eval ({dev}): {out}")
+    header = "Model: MARN1_onlysp \nDataset : IEMOCAP\n" + "-" * 20 + "\n"
+    print(f"[tools] train --eval True: score.txt {scores['cuda']!r} on the card, byte-equal to "
+          f"the CPU's: {scores['cuda'] == scores['cpu']}; {NAME} launches "
+          f"{launches[NAME][cli_path]}")
+    check(scores["cuda"] == scores["cpu"] == header.encode(),
+          f"train --eval's score.txt: card {scores['cuda']!r}, CPU {scores['cpu']!r}")
+    check(LAUNCHES[NAME] == 0 and launches[NAME][cli_path] > 0,
+          "train --eval on the card did not launch the recurrence kernel")
+    test_loader = get_loaders(pickles, batch_size=80, valid=0.2, seed=PREDICT_SEED)[2]
+    rows, h_path = {}, "ModelTrainer eval with h.csv"
+    for dev in ("cuda", "cpu"):
+        trainer = ModelTrainer(device=dev, res_csv_path=str(tmp / f"res_{dev}.csv"),
+                               legacy_h_csv_path=str(tmp / f"h_{dev}.csv"))
+        run_quiet(trainer.load_parameters, str(ckpt))
+        reset_launches()
+        trainer.eval_network(test_loader)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            launches[NAME][h_path] = LAUNCHES[NAME]
+        rows[dev] = list(csv.reader((tmp / f"h_{dev}.csv").read_text().splitlines()))
+        res = list(csv.reader((tmp / f"res_{dev}.csv").read_text().splitlines()))
+        check(rows[dev][1:] == [[r[1], r[0], r[2]] for r in res[1:]],
+              f"h.csv ({dev}) does not hold res.csv's rows")
+    h, h_cpu = rows["cuda"], rows["cpu"]
+    valid = [i for i, r in enumerate(h[1:], 1) if float(r[2]) > 0]
+    agree = sum(h[i][1] == h_cpu[i][1] for i in valid) / max(len(valid), 1)
+    print(f"[tools] ModelTrainer h.csv: {len(h) - 1} rows, header {','.join(h[0])}; trues and "
+          f"masks card = CPU: {[r[0::2] for r in h] == [r[0::2] for r in h_cpu]}, predictions "
+          f"agree on {agree:.5f} of {len(valid)} valid rows; {NAME} launches "
+          f"{launches[NAME][h_path]}")
+    check(h[0] == ["trues", "preds", "masks"] and len(h) == len(h_cpu) > 1
+          and [r[0::2] for r in h] == [r[0::2] for r in h_cpu] and agree >= 0.999,
+          f"h.csv: card and CPU differ (agreement {agree})")
+    check(launches[NAME][h_path] > 0, "the h.csv eval launched no "
+          f"{NAME}")
+    print(f"[tools] (a) in {time.perf_counter() - t0:.1f} s")
+
+    # (b) compare_artifacts on phase 12's three onlysp artifacts, against
+    #     the same figures computed here from ServingModel on the same batch
+    t0 = time.perf_counter()
+    cmp_path = "compare_artifacts, 3 artifacts at [110, 80]"
+    reset_launches()
+    report, _ = run_cli_json(compare_artifacts.main, list(artifacts))
+    torch.cuda.synchronize()
+    launches[NAME][cmp_path] = LAUNCHES[NAME]
+    print(f"[tools] compare_artifacts: {json.dumps(report)}")
+    served = [ServingModel.load(path, device="cuda") for path in artifacts]
+    L, B = served[0].buckets[-1]
+    batch = synthetic_batch(L=L, B=B, n_classes=6, seed=3)
+    base = served[0].predict(batch)["logp"]
+    valid = batch["umask"] > 0
+    for path, s in zip(artifacts[1:], served[1:]):
+        dtype, logp = s.header.get("dtype", "f32"), s.predict(batch)["logp"]
+        d = np.abs(logp - base)[valid]
+        inline = {"path": path, "max_logp_drift": float(d.max()),
+                  "mean_logp_drift": float(d.mean()), "argmax_agreement": round(float(
+                      (logp.argmax(-1) == base.argmax(-1))[valid].mean()), 4)}
+        print(f"[tools] {dtype} inline (new bucket graphs, the same batch): {inline}; equal to "
+              f"compare_artifacts' {report[dtype] == inline}")
+        # other graphs of the same forward: the figures within 1e-5, the
+        # agreement within one row of a thousand
+        check(report[dtype]["path"] == path and all(
+            abs(report[dtype][k] - inline[k]) <= 1e-5 for k in ("max_logp_drift",
+                                                                "mean_logp_drift"))
+              and abs(report[dtype]["argmax_agreement"] - inline["argmax_agreement"]) <= 1e-3,
+              f"compare_artifacts {dtype}: {report[dtype]}, inline {inline}")
+    check(report["model"] == "MARN1_onlysp" and report["shape"] == [L, B]
+          and report["bf16"]["max_logp_drift"] < 0.5
+          and report["int8"]["argmax_agreement"] >= 0.9,
+          f"compare_artifacts: {report}")
+    want = len(artifacts) * (GRAPH_WARMUP + 1)
+    check(launches[NAME][cmp_path] == want,
+          f"compare_artifacts launched {NAME} "
+          f"{launches[NAME][cmp_path]} times, want {want}")
+    del served
+    print(f"[tools] (b) in {time.perf_counter() - t0:.1f} s")
+
+    # (c) convergence_bf16, one seed, one epoch, on the card: the rank-1
+    #     kernel 2T times a step in f32, its bf16 form 2T times a step in bf16
+    t0 = time.perf_counter()
+    # the script's set and loaders: its f32 run trains on the train
+    # loader's first epoch, its bf16 run on the second
+    steps = generate_iemocap_pickles(str(tmp / "conv"), **convergence_bf16.DATA)
+    conv_train, _, conv_test = get_loaders(steps, batch_size=8, valid=0.25)
+    two_t = [2 * sum(b["qmask"].shape[0] for b in conv_train) for _ in range(2)]
+    n_test = len(conv_test)
+    reset_launches()
+    out = tmp / "conv.json"
+    run_quiet(convergence_bf16.main, CONVERGENCE_ARGS + ["--out", str(out)])
+    doc = json.loads(out.read_text())
+    torch.cuda.synchronize()
+    got = {k: LAUNCHES[k] for k in (RANK1, RANK1_BF16, NAME)}
+    what = "convergence_bf16 MARN1_onlysp, 1 seed, 1 epoch"
+    launches[RANK1][what], launches[RANK1_BF16][what], launches[NAME][what] = got.values()
+    run = doc["models"]["MARN1_onlysp"]
+    print(f"[tools] {what}: f32 {run['f32']['runs'][0]}, bf16 {run['bf16']['runs'][0]}; "
+          f"launches {got}, want {two_t[0]} f32 and {two_t[1]} bf16 rank-1 launches (2T a "
+          f"step over {len(conv_train)} steps an epoch) and {2 * n_test} of {NAME}")
+    check(list(doc) == ["backend", "epochs", "seeds", "n_train", "n_test", "models"]
+          and doc["backend"] == "cuda" and list(run) == [
+              "f32", "bf16", "f1_gap_mean", "f32_seed_spread", "within_seed_noise"]
+          and all(list(run[d]) == ["runs", "f1_mean", "f1_min", "f1_max"]
+                  and list(run[d]["runs"][0]) == ["final_loss", "first_loss", "acc", "f1",
+                                                  "wall_s"] for d in ("f32", "bf16")),
+          f"convergence_bf16's document: {doc}")
+    check(got == {RANK1: two_t[0], RANK1_BF16: two_t[1], NAME: 2 * n_test},
+          f"convergence_bf16 launches {got}")
+    print(f"[tools] (c) in {time.perf_counter() - t0:.1f} s")
+
+    # (d) the 20 zoo classes, card against CPU: a forward, and a forward and
+    #     backward of a fixed weighted sum, the card replaying the CPU's ReLU
+    #     decisions; no port kernel; ms a forward and a forward and backward
+    t0 = time.perf_counter()
+    for name, (build, x, seq) in zoo_classes(torch).items():
+        pair = {}
+        for dev in ("cpu", "cuda"):
+            m = build(generator(0))
+            randomize_zoo(torch, m, seed=5)
+            pair[dev] = m.to(dev).eval()
+        call = lambda m, xi: m(xi, xi, xi) if seq else m(xi)  # noqa: E731
+        xs = {"cpu": x.clone().requires_grad_(), "cuda": x.cuda().requires_grad_()}
+        outs = {}
+        reset_launches()
+        with PinnedRelu(torch) as relu:
+            for dev in ("cpu", "cuda"):  # the CPU first, then the card
+                outs[dev] = call(pair[dev], xs[dev])
+                if dev == "cpu":  # the sum's weights
+                    w = torch.randn(outs[dev].shape, generator=torch.Generator().manual_seed(6))
+                (outs[dev] * w.to(dev)).sum().backward()
+                relu.replay()
+        w = w.cuda()
+        no_port_kernel(torch, f"zoo {name}")
+        out, ref = outs["cuda"].detach().cpu(), outs["cpu"].detach()
+        worst, dead_cpu, dead_card = grad_check(torch, pair["cpu"], pair["cuda"])
+        gx, gx_ref = xs["cuda"].grad.cpu(), xs["cpu"].grad
+        gx_worst = ((gx - gx_ref).abs().max() / (GRAD_RTOL * gx_ref.abs().max())).item()
+        for p in pair["cuda"].parameters():
+            p.grad = None
+        xc = xs["cuda"].detach()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(torch, lambda: call(pair["cuda"], xc), warmup=2, iters=ZOO_ITERS)
+        xg = xc.clone().requires_grad_()
+        both_ms = cuda_ms(torch, lambda: (call(pair["cuda"], xg) * w).sum().backward(),
+                          warmup=2, iters=ZOO_ITERS)
+        no_port_kernel(torch, f"zoo {name} timed")
+        err = (out - ref).abs().max().item()
+        print(f"[zoo] {name} {list(x.shape)} -> {list(ref.shape)}: max|card - CPU| {err:.3e} "
+              f"(max|out| {ref.abs().max().item():.3e}), gradients {worst:.3f} and input "
+              f"gradient {gx_worst:.3f} of the tolerance, {relu.flips} of {relu.total} ReLU "
+              f"decisions replaced; no port kernel")
+        print(f"[time] {card} | zoo {name} [{ZOO_B}, ...]: forward {fwd_ms:.4f} ms, forward "
+              f"and backward {both_ms:.4f} ms (median of {ZOO_ITERS})")
+        check(torch.isfinite(out).all().item() and out.shape == ref.shape,
+              f"zoo {name}: non-finite or misshapen output")
+        check(torch.allclose(out, ref, rtol=1e-3, atol=1e-4),
+              f"zoo {name}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        check(worst <= 1.0 and gx_worst <= 1.0 and dead_cpu == dead_card == set(),
+              f"zoo {name}: gradients card and CPU disagree ({worst}, {gx_worst}) or are "
+              f"missing ({sorted(dead_card)})")
+        check(relu.flips <= 1e-5 * max(relu.total, 1), f"zoo {name}: the card's forward "
+              f"crossed {relu.flips} ReLU kinks")
+        del pair, outs, xs, xc, xg, w
+    torch.cuda.empty_cache()
+    print(f"[tools] (d) in {time.perf_counter() - t0:.1f} s")
+    tmp_dir.cleanup()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4089,7 +4392,8 @@ def main() -> int:
 
     # 12. the serving artifacts: export, bucket graphs, run and bench
     t0 = time.perf_counter()
-    serve_launches = serving_phase(torch, card, eval_batch, meld_path)
+    artifacts_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_")
+    serve_launches = serving_phase(torch, card, eval_batch, meld_path, artifacts_tmp.name)
     print(f"[serve] phase 12 in {time.perf_counter() - t0:.1f} s; launches by path: "
           f"{serve_launches}")
 
@@ -4117,14 +4421,24 @@ def main() -> int:
                  meld_path)
     print(f"[extras] phase 16 in {time.perf_counter() - t0:.1f} s")
     meld_tmp.cleanup()
+
+    # 17. train --eval's score.txt, h.csv, the two scripts, the zoo's 20 classes
+    t0 = time.perf_counter()
+    tools_launches = tools_zoo_phase(torch, card, weights, [
+        str(Path(artifacts_tmp.name) / f"onlysp_{d}.ser") for d in ("f32", "bf16", "int8")])
+    artifacts_tmp.cleanup()
+    print(f"[tools] phase 17 in {time.perf_counter() - t0:.1f} s; launches by path: "
+          f"{tools_launches}")
+    bf16_record["launches_by_path"].update(tools_launches[rank1_kernel.NAME_BF16])
+    bf16_record["launches"] = sum(bf16_record["launches_by_path"].values())
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
                      "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
                       **variant_launches, **serve_launches[RANK1], **zoo_launches[RANK1],
-                      **dp_launches[RANK1], **tp_launches[RANK1]}
+                      **dp_launches[RANK1], **tp_launches[RANK1], **tools_launches[RANK1]}
     lsthm_launches = {"MARN1_onlysp Predictor, three requests": main_launches,
                       **serve_launches[NAME], **zoo_launches[NAME], **dp_launches[NAME],
-                      **tp_launches[NAME]}
+                      **tp_launches[NAME], **tools_launches[NAME]}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",

@@ -52,6 +52,16 @@ keys under ``<encoder>.slf_attn.op.``: ``mk.weight``, ``fc_q.weight``,
 ``conv5.pointwise_conv.weight [D, h·d_v, 1]``, kernels transposed. The JAX
 package's ``torch_export`` has no home for these leaves (it logs and skips
 them), so these keys are the port's own.
+
+``zoo_from_jax`` and ``zoo_to_jax`` carry one attention-zoo class's
+parameters (``ops/attention_zoo.py``; no model holds these) between the
+JAX module's tree and the port module's state dict, by the table
+``zoo_leaves`` gives for the module: an HWIO kernel is OIHW, a Dense
+kernel ``[in, out]`` is ``[out, in]`` (and ``[out, in, 1, 1]`` where the
+vendored module has a 1x1 convolution), ECA's taps ``[k]`` are
+``[1, 1, k]``, and ``<bn>_scale/_bias/_mean/_var`` are
+``<bn>.weight/.bias/.running_mean/.running_var``. The keys are the
+vendored torch modules'.
 """
 
 from __future__ import annotations
@@ -289,3 +299,151 @@ def to_jax_params(state_dict) -> dict[str, np.ndarray]:
         name, v = to_jax_leaf(key, value.detach().cpu().numpy(), layout)
         out[name] = np.ascontiguousarray(v, dtype=np.float32)
     return out
+
+
+
+# --- one attention-zoo class's parameters -----------------------------------
+
+# JAX layout -> torch layout, and back, by the name ``zoo_leaves`` gives it
+_ZOO_TO_TORCH = {
+    "same": lambda v: v,
+    "linear": lambda v: v.T,
+    "hwio": lambda v: v.transpose(3, 2, 0, 1),
+    "1x1": lambda v: v.T[:, :, None, None],
+    "taps": lambda v: v.reshape(1, 1, -1),
+}
+_ZOO_TO_JAX = {
+    "same": lambda v: v,
+    "linear": lambda v: v.T,
+    "hwio": lambda v: v.transpose(2, 3, 1, 0),
+    "1x1": lambda v: v[:, :, 0, 0].T,
+    "taps": lambda v: v.reshape(-1),
+}
+
+
+def _conv(jax, key, bias=True, layout="hwio"):
+    return [(f"{jax}_kernel", f"{key}.weight", layout)] + (
+        [(f"{jax}_bias", f"{key}.bias", "same")] if bias else [])
+
+
+def _linear(jax, key, bias=True):
+    return _conv(jax, key, bias, "linear")
+
+
+def _bn(jax, key):
+    return [(f"{jax}_{a}", f"{key}.{b}", "same") for a, b in (
+        ("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+        ("var", "running_var"))]
+
+
+def zoo_leaves(module) -> list[tuple[str, str, str]]:
+    """``(JAX path, port key, layout)`` of every parameter and statistic of
+    an attention-zoo module of the port, its configuration read from the
+    module (SKAttention's kernels, BAMBlock's layers, PSA's groups, EMSA's
+    ratio, ...). A JAX path joins nested modules with ``/`` (DAModule's
+    ``pa/fc_q_kernel``, CBAMBlock's ``sa/conv_kernel``)."""
+    name, m = type(module).__name__, module
+    if name == "SEAttention":
+        return [("fc1", "fc.0.weight", "linear"), ("fc2", "fc.2.weight", "linear")]
+    if name == "ECAAttention":
+        return [("conv_kernel", "conv.weight", "taps"), ("conv_bias", "conv.bias", "same")]
+    if name == "CBAMChannelGate":
+        return [("mlp1", "se.0.weight", "1x1"), ("mlp2", "se.2.weight", "1x1")]
+    if name == "CBAMSpatialGate":
+        return _conv("conv", "conv")
+    if name == "CBAMBlock":
+        return [("se1", "ca.se.0.weight", "1x1"), ("se2", "ca.se.2.weight", "1x1"),
+                *_conv("sa/conv", "sa.conv")]
+    if name in ("SpatialGroupEnhance", "ShuffleAttention"):
+        own = ("weight", "bias") if name == "SpatialGroupEnhance" else (
+            "cweight", "cbias", "sweight", "sbias")
+        gn = [("gn_scale", "gn.weight", "same"), ("gn_bias", "gn.bias", "same")]
+        return [(n, n, "same") for n in own] + (gn if name == "ShuffleAttention" else [])
+    if name == "CoordAttention":
+        return [*_conv("conv1", "conv1"), *_bn("bn1", "bn1"), *_conv("conv_h", "conv_h"),
+                *_conv("conv_w", "conv_w")]
+    if name == "TripletAttention":
+        return [leaf for g in ("cw", "hc") + (() if m.no_spatial else ("hw",))
+                for leaf in _conv(f"{g}_conv", f"{g}.conv.conv", bias=False)
+                + _bn(f"{g}_bn", f"{g}.conv.bn")]
+    if name == "SKAttention":
+        out = _linear("fc", "fc")
+        for i, k in enumerate(m.kernels):
+            out += (_conv(f"conv{k}", f"convs.{i}.conv") + _bn(f"bn{k}", f"convs.{i}.bn")
+                    + _linear(f"fcs{i}", f"fcs.{i}"))
+        return out
+    if name == "BAMBlock":
+        out = []
+        for i in range(m.num_layers):
+            out += _linear(f"ca_fc{i}", f"ca.ca.fc{i}") + _bn(f"ca_bn{i}", f"ca.ca.bn{i}")
+        out += _linear("ca_last_fc", "ca.ca.last_fc")
+        out += _conv("sa_reduce", "sa.sa.conv_reduce1") + _bn("sa_reduce_bn", "sa.sa.bn_reduce1")
+        for i in range(m.num_layers):
+            out += _conv(f"sa_conv{i}", f"sa.sa.conv_{i}") + _bn(f"sa_bn{i}", f"sa.sa.bn_{i}")
+        return out + _conv("sa_last_conv", "sa.sa.last_conv")
+    if name == "PSA":
+        return [leaf for i in range(m.S) for leaf in _conv(f"conv{i}", f"convs.{i}")
+                + _conv(f"se{i}_fc1", f"se_blocks.{i}.1", bias=False)
+                + _conv(f"se{i}_fc2", f"se_blocks.{i}.3", bias=False)]
+    if name == "CoTAttention":
+        return [*_conv("key_conv", "key_embed.0", bias=False), *_bn("key_bn", "key_embed.1"),
+                *_conv("value_conv", "value_embed.0", bias=False),
+                *_bn("value_bn", "value_embed.1"),
+                *_conv("att_conv1", "attention_embed.0", bias=False),
+                *_bn("att_bn", "attention_embed.1"), *_conv("att_conv2", "attention_embed.3")]
+    if name == "DoubleAttention":
+        convs = ("convA", "convB", "convV") + (("conv_reconstruct",) if m.reconstruct else ())
+        return [leaf for c in convs for leaf in _conv(c, c, layout="1x1")]
+    if name == "DAModule":
+        pam, cam = "position_attention_module", "channel_attention_module"
+        return [*_conv("pos_cnn", f"{pam}.cnn"), *_conv("chan_cnn", f"{cam}.cnn"),
+                *(leaf for n in "qkvo" for leaf in _linear(f"pa/fc_{n}", f"{pam}.pa.fc_{n}")),
+                *_linear("ca/fc_o", f"{cam}.pa.fc_o")]
+    if name == "PolarizedSelfAttention":
+        return [leaf for c in ("ch_wv", "ch_wq", "ch_wz", "sp_wv", "sp_wq")
+                for leaf in _conv(c, c)] + [("ln_scale", "ln.weight", "same"),
+                                             ("ln_bias", "ln.bias", "same")]
+    if name == "S2Attention":
+        return [*_linear("mlp1", "mlp1"), *_linear("mlp2", "mlp2"),
+                ("sa_mlp1_kernel", "split_attention.mlp1.weight", "linear"),
+                ("sa_mlp2_kernel", "split_attention.mlp2.weight", "linear")]
+    if name in ("AFTFull", "UFOAttention", "EMSA"):
+        fcs = "qkv" if name == "AFTFull" else "qkvo"
+        out = [leaf for n in fcs for leaf in _linear(f"fc_{n}", f"fc_{n}")]
+        if name == "AFTFull":
+            return out + ([] if m.simple else [("position_biases", "position_biases", "same")])
+        if name == "UFOAttention":
+            return out + [("gamma", "gamma", "same")]
+        if m.ratio > 1:
+            out += _conv("sr_conv", "sr_conv") + [("sr_ln_scale", "sr_ln.weight", "same"),
+                                                  ("sr_ln_bias", "sr_ln.bias", "same")]
+        return out + (_conv("transform_conv", "transform.conv") if m.apply_transform else [])
+    raise KeyError(f"no JAX parameter table for the zoo class {name}")
+
+
+def zoo_from_jax(module, params) -> dict[str, torch.Tensor]:
+    """One zoo class's JAX parameter tree (nested dicts of arrays, as
+    ``init`` gives it under ``"params"``) -> ``module``'s state dict."""
+    out = {}
+    for path, key, layout in zoo_leaves(module):
+        v = params
+        for part in path.split("/"):
+            v = v[part]
+        v = _ZOO_TO_TORCH[layout](np.asarray(v, dtype=np.float32))
+        out[key] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def zoo_to_jax(module, state_dict=None) -> dict:
+    """``module``'s state dict (its own by default) -> the JAX class's
+    parameter tree, numpy arrays in nested dicts."""
+    state_dict = module.state_dict() if state_dict is None else state_dict
+    tree = {}
+    for path, key, layout in zoo_leaves(module):
+        *heads, leaf = path.split("/")
+        node = tree
+        for head in heads:
+            node = node.setdefault(head, {})
+        v = state_dict[key].detach().cpu().numpy()
+        node[leaf] = np.ascontiguousarray(_ZOO_TO_JAX[layout](v), dtype=np.float32)
+    return tree

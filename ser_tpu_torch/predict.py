@@ -99,18 +99,30 @@ def fusion_weights(model: torch.nn.Module) -> dict:
     return out
 
 
-def write_res_csv(path, preds, labels, masks) -> None:
-    """``preds,labels,masks`` rows, in the text form of pandas'
+def _write_columns(path, columns: dict, masks) -> None:
+    """Integer columns and then ``masks``, in the text form of pandas'
     ``DataFrame.to_csv(index=False)`` (float32 masks as numpy prints them)."""
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
-        w.writerow(["preds", "labels", "masks"])
-        for p, lab, m in zip(preds, labels, masks):
-            w.writerow([int(p), int(lab), str(np.float32(m))])
+        w.writerow([*columns, "masks"])
+        for *ints, m in zip(*columns.values(), masks):
+            w.writerow([*(int(v) for v in ints), str(np.float32(m))])
 
 
-def eval_network(predictor: Predictor, loader, res_csv=None, group=None):
-    """Predict every batch of ``loader``; write ``res_csv`` and return
+def write_res_csv(path, preds, labels, masks) -> None:
+    """``preds,labels,masks`` rows."""
+    _write_columns(path, {"preds": preds, "labels": labels}, masks)
+
+
+def write_h_csv(path, preds, labels, masks) -> None:
+    """The reference's ``h.csv`` (``model_trainer_n.py:133-135``): the rows
+    of ``res.csv`` as ``trues,preds,masks``."""
+    _write_columns(path, {"trues": labels, "preds": preds}, masks)
+
+
+def eval_network(predictor: Predictor, loader, res_csv=None, group=None, legacy_h_csv=None):
+    """Predict every batch of ``loader``; write ``res_csv`` (and, where it
+    is written, ``legacy_h_csv``: ``write_h_csv``) and return
     ``(weighted accuracy, weighted F1)`` over the unmasked utterances. The
     rows of ``res_csv`` are in the order of the model's outputs, as the
     JAX package writes them (time-major for MARN_AT and MARN_ATV). Under
@@ -135,6 +147,8 @@ def eval_network(predictor: Predictor, loader, res_csv=None, group=None):
     masks = np.concatenate(masks)
     if res_csv:
         write_res_csv(res_csv, preds, labels, masks)
+        if legacy_h_csv:
+            write_h_csv(legacy_h_csv, preds, labels, masks)
     return (weighted_accuracy(labels, preds, masks),
             weighted_f1(labels, preds, masks))
 

@@ -18,6 +18,8 @@ train, then every ``--test_step`` epochs save ``model/model_%04d.model``
 (the JAX package's ``.npz``), eval on the test split (``res.csv``) and append
 a line to ``score.txt`` with the best F1 so far; at the end the fusion
 weights of each eval go to ``parameters.csv`` in the working directory.
+``--eval True`` writes ``score.txt``'s header, as a training run does, and
+evaluates ``--initial_model`` on the test split.
 With ``--save_state`` every such epoch also writes ``model/last.state``;
 ``--resume PATH`` (or ``latest``: that file when it exists) continues from
 one as if the run had never stopped: the same parameters, Adam state,
@@ -178,39 +180,40 @@ def _run(args, use_frontend, proc):
     if args.num_workers > 0:
         train_loader = PrefetchLoader(train_loader)
         test_loader = PrefetchLoader(test_loader)
-    if args.eval:
-        trainer = ModelTrainer(**vars(args))
-        print("Model %s loaded from previous state!" % args.initial_model)
-        trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
-        if args.export_torch:  # every process calls it; rank 0 writes
-            trainer.export_parameters_torch(args.export_torch)
-            print(f"Exported reference-format checkpoint: {args.export_torch}")
-        acc, fscore, _ = trainer.eval_network(test_loader)
-        print(f"Acc {acc:.2f}, Fscore {fscore:.2f}")
-        return
-
-    trainer = ModelTrainer(**vars(args))
-    if args.initial_model != "":
-        print("Model %s loaded from previous state!" % args.initial_model)
-        trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
-
-    start_epoch = 0
-    resume_path = _resolve_resume(args.resume, args.model_save_path)
-    if resume_path:
-        start_epoch = trainer.load_train_state(resume_path)
-        # the loaders' generators start from their seeds: draw the shuffles
-        # of the finished epochs
-        train_loader.advance_epochs(start_epoch)
-        valid_loader.advance_epochs(start_epoch)
-        print(f"Train state {resume_path} resumed at epoch {start_epoch}!")
-    fscores = list(trainer.history.get("fscores", []))
-    w_dic = defaultdict(list, {k[len("fusion/"):]: list(v)
-                               for k, v in trainer.history.items()
-                               if k.startswith("fusion/")})
+    # the header goes out before --eval returns, as in train.py
     with (open(args.score_save_path, "a+") if primary
           else open(os.devnull, "w")) as score_file:
         score_file.write(f"Model: {args.model} \nDataset : {args.dataset}\n"
                          + "-" * 20 + "\n")
+        if args.eval:
+            trainer = ModelTrainer(**vars(args))
+            print("Model %s loaded from previous state!" % args.initial_model)
+            trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
+            if args.export_torch:  # every process calls it; rank 0 writes
+                trainer.export_parameters_torch(args.export_torch)
+                print(f"Exported reference-format checkpoint: {args.export_torch}")
+            acc, fscore, _ = trainer.eval_network(test_loader)
+            print(f"Acc {acc:.2f}, Fscore {fscore:.2f}")
+            return
+
+        trainer = ModelTrainer(**vars(args))
+        if args.initial_model != "":
+            print("Model %s loaded from previous state!" % args.initial_model)
+            trainer.load_parameters(args.initial_model, torch_format=args.torch_format)
+
+        start_epoch = 0
+        resume_path = _resolve_resume(args.resume, args.model_save_path)
+        if resume_path:
+            start_epoch = trainer.load_train_state(resume_path)
+            # the loaders' generators start from their seeds: draw the shuffles
+            # of the finished epochs
+            train_loader.advance_epochs(start_epoch)
+            valid_loader.advance_epochs(start_epoch)
+            print(f"Train state {resume_path} resumed at epoch {start_epoch}!")
+        fscores = list(trainer.history.get("fscores", []))
+        w_dic = defaultdict(list, {k[len("fusion/"):]: list(v)
+                                   for k, v in trainer.history.items()
+                                   if k.startswith("fusion/")})
         for epoch in range(start_epoch + 1, args.epoch + 1):
             print("-" * 10, f"epoch {epoch} training", "-" * 10)
             lr, loss = trainer.train_network(epoch, train_loader)

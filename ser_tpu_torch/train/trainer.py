@@ -2,7 +2,9 @@
 ``ser_tpu/train/trainer.py``), with the reference's surface:
 
 - ``train_network(epoch, loader) -> (lr, avg_loss)``;
-- ``eval_network(loader) -> (acc, f1, {})``, writing ``res.csv``;
+- ``eval_network(loader) -> (acc, f1, {})``, writing ``res.csv`` and, with
+  ``legacy_h_csv_path``, the reference's ``h.csv`` beside it (the same rows
+  as ``trues,preds,masks``, ``model_trainer_n.py``'s layout);
 - ``save_parameters`` / tolerant ``load_parameters`` and
   ``export_parameters_torch``;
 - ``save_train_state`` / ``load_train_state`` for an exact resume: the
@@ -104,7 +106,7 @@ class ModelTrainer:
                  model="MARN1_onlysp", loss="CrossEntropy", n_classes=6,
                  seed=111, weight_decay=2e-5, res_csv_path="res.csv",
                  audio_frontend=None, infonce=0.0, encoder_attention="mha",
-                 compute_dtype="f32", dp=False, tp=1, **kwargs):
+                 compute_dtype="f32", dp=False, tp=1, legacy_h_csv_path=None, **kwargs):
         del kwargs  # the CLI passes all of its flags
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
@@ -134,6 +136,7 @@ class ModelTrainer:
         self.loss_kind = loss
         self.n_classes = n_classes
         self.res_csv_path = res_csv_path
+        self.legacy_h_csv_path = legacy_h_csv_path
         self.infonce = float(infonce)
         if self.infonce > 0 and not self.predictor.spec.feature_outputs:
             # the JAX trainer's quiet no-op for the models without features
@@ -274,7 +277,7 @@ class ModelTrainer:
         with self.whole_parameters():
             acc, f1 = eval_network(self.predictor, loader,
                                    self.res_csv_path if self.primary else None,
-                                   group=self.dp_group)
+                                   group=self.dp_group, legacy_h_csv=self.legacy_h_csv_path)
         return acc, f1, {}
 
     def fusion_weights(self):

@@ -8,9 +8,12 @@ packages.
 - A checkpoint the port writes loads into the JAX package's ``ModelTrainer``
   and one the JAX package writes loads into the port's, with equal eval
   predictions: ``res.csv`` equal byte for byte.
+- ``legacy_h_csv_path`` writes the JAX trainer's ``h.csv`` byte for byte,
+  and only beside ``res.csv``.
 - The train CLI writes ``score.txt``, the checkpoints and ``parameters.csv``;
   ``--eval True`` prints the JAX ``train.py``'s Acc/Fscore line on one
-  checkpoint (``tests/test_torch_resume.py`` holds ``--dataset MELD``,
+  checkpoint and writes its ``score.txt`` byte for byte
+  (``tests/test_torch_resume.py`` holds ``--dataset MELD``,
   ``--save_state`` and ``--resume``; ``tests/test_torch_mixed_precision.py``,
   ``tests/test_torch_parallel.py`` and ``tests/test_torch_tp.py``
   ``--compute_dtype bf16``, ``--dp`` and ``--tp``).
@@ -118,6 +121,45 @@ def test_jax_checkpoint_loads_in_port(jax_trainer, feature_path, tmp_path, capsy
                                                   valid=0.25)[2])
     assert (acc, f1) == (jacc, jf1)
     assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
+
+
+def test_h_csv_is_the_jax_trainers(trained, jax_trainer, feature_path, tmp_path):
+    """``legacy_h_csv_path``, set after construction as the JAX test sets
+    it: ``h.csv`` byte-equal to the JAX trainer's on the same weights and
+    loader, beside an equal ``res.csv``."""
+    trainer, _, test_loader = trained
+    ckpt = str(tmp_path / "port.model")
+    trainer.save_parameters(ckpt)
+    jax_trainer.load_parameters(ckpt)
+    files = {}
+    for who, t, loader in (("port", trainer, test_loader),
+                           ("jax", jax_trainer, _jax_test_loader(feature_path))):
+        t.res_csv_path = str(tmp_path / f"{who}_res.csv")
+        t.legacy_h_csv_path = str(tmp_path / f"{who}_h.csv")
+        try:
+            t.eval_network(loader)
+        finally:
+            t.legacy_h_csv_path = None
+        files[who] = [(tmp_path / f"{who}_{f}.csv").read_bytes() for f in ("res", "h")]
+    assert files["port"] == files["jax"]
+    assert files["port"][1].startswith(b"trues,preds,masks\n")
+
+
+@pytest.mark.parametrize("res_csv", [True, False])
+def test_h_csv_only_where_res_csv_is_written(trained, tmp_path, res_csv):
+    """No ``h.csv`` without its path, and none without ``res_csv_path``: the
+    JAX trainer writes it only beside ``res.csv``."""
+    trainer, _, test_loader = trained
+    res, h = tmp_path / "res.csv", tmp_path / "h.csv"
+    kept = trainer.res_csv_path, trainer.legacy_h_csv_path
+    trainer.res_csv_path = str(res) if res_csv else None
+    trainer.legacy_h_csv_path = None if res_csv else str(h)
+    try:
+        trainer.eval_network(test_loader)
+    finally:
+        trainer.res_csv_path, trainer.legacy_h_csv_path = kept
+    assert res.exists() == res_csv and not h.exists()
+    assert ModelTrainer(device="cpu", legacy_h_csv_path=str(h)).legacy_h_csv_path == str(h)
 
 
 def test_tolerant_partial_load(tmp_path, capsys):
@@ -232,6 +274,10 @@ def test_eval_cli_prints_the_jax_train_py_line(cli_run, feature_path, tmp_path,
     jax = [line for line in capsys.readouterr().out.splitlines()
            if line.startswith("Acc ")]
     assert len(port) == 1 and port == jax
+    # the eval-only run writes train.py's score.txt header, no more
+    score = (tmp_path / "port" / "score.txt").read_bytes()
+    assert score == b"Model: MARN1_onlysp \nDataset : IEMOCAP\n" + b"-" * 20 + b"\n"
+    assert score == (tmp_path / "jax" / "score.txt").read_bytes()
 
 
 def test_cli_names_the_zoo_item_for_another_model(tmp_path):
