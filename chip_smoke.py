@@ -293,6 +293,22 @@ Phases, each fatal on failure:
     contract), the card replaying the CPU's ReLU decisions (``PinnedRelu``),
     every kernel counter 0; ms a forward and a forward with its backward
     (median of 10).
+18. the attention zoo's last 15 classes (``ops/attention_zoo_vision.py``,
+    ``ops/attention_zoo_transformers.py``) at the JAX classes' default
+    widths, weights redrawn from a seed: the blocks at batch 50 (NCHW [50,
+    512, 7, 7]; ViP NHWC [50, 8, 8, 512], Outlook NHWC [50, 28, 28, 512],
+    Halo [50, 512, 8, 8] with block 2 and halo 1, MobileViT [50, 3, 49,
+    49]), GFNet, CoAtNet, CrossFormer, MOATransformer and DAT on [32, 3,
+    224, 224] images: (a) a forward, and a forward with the backward of a
+    fixed weighted sum, on the card against the CPU (rtol 1e-3, atol 1e-4;
+    the gradients of the input and of every parameter at the train-step
+    contract; GFNet's unused ``embedding`` without one on both), at batch 2
+    for MobileViT and the backbones; the card's gradients on its own kinks
+    reported, then checked replaying the CPU's (``PinnedKinks``: ReLU
+    signs, max-pool choices, the cells of DAT's bilinear samples), the
+    flipped decisions counted; (b) every kernel counter 0; (c) ms a forward
+    and a forward with its backward (median of 10) at the timed batch, and
+    the peak memory of each.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -3563,6 +3579,261 @@ def tools_zoo_phase(torch, card, weights, artifacts):
     return launches
 
 
+# phase 18: the attention zoo's last 15 classes, the vision blocks and the
+# Swin-family backbones, at the JAX classes' default widths. The blocks run
+# at batch 50 (NCHW [50, 512, 7, 7] where a class has no default, as phase
+# 17; ViP, Outlook and Halo at the shapes their rules demand; MobileViT on
+# [50, 3, 49, 49]), the backbones on [B, 3, 224, 224] images at batch 32; the
+# card-against-CPU check of the backbones and of MobileViT (4.5 TFLOP a
+# forward and backward at batch 50 on the CPU) runs at batch 2
+LAST_B, BACKBONE_B, CHECK_B = 50, 32, 2
+
+
+def last_zoo_classes(torch):
+    """name -> (port module from a generator, input on the CPU at the timed
+    batch, the batch of the card-against-CPU check, parameters whose
+    gradient is None)."""
+    from ser_tpu_torch.ops import attention_zoo_transformers as ZT
+    from ser_tpu_torch.ops import attention_zoo_vision as ZV
+
+    C = ZOO_C
+
+    def draw(*shape, seed):
+        return torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+
+    nchw = draw(LAST_B, C, ZOO_HW, ZOO_HW, seed=19)
+    image = draw(BACKBONE_B, 3, 224, 224, seed=20)
+    blocks = {
+        "ResidualAttention": (lambda g: ZV.ResidualAttention(C, generator=g), nchw),
+        "ParNetAttention": (lambda g: ZV.ParNetAttention(C, generator=g), nchw),
+        "CrissCrossAttention": (lambda g: ZV.CrissCrossAttention(C, generator=g), nchw),
+        "WeightedPermuteMLP": (lambda g: ZV.WeightedPermuteMLP(C, 8, generator=g),
+                               draw(LAST_B, 8, 8, C, seed=21)),
+        "OutlookAttention": (lambda g: ZV.OutlookAttention(C, generator=g),
+                             draw(LAST_B, 28, 28, C, seed=22)),
+        "HaloAttention": (lambda g: ZV.HaloAttention(C, 2, 1, generator=g),
+                          draw(LAST_B, C, 8, 8, seed=23)),
+        "ACmix": (lambda g: ZV.ACmix(C, C, generator=g), nchw),
+        "AxialAttention": (lambda g: ZV.AxialAttention(C, generator=g), nchw),
+        "MBConvBlock": (lambda g: ZV.MBConvBlock(3, C, C, generator=g), nchw),
+    }
+    out = {name: (build, x, LAST_B, set()) for name, (build, x) in blocks.items()}
+    out["MobileViTAttention"] = (lambda g: ZV.MobileViTAttention(generator=g),
+                                 draw(LAST_B, 3, 49, 49, seed=24), CHECK_B, set())
+    out["GFNet"] = (lambda g: ZV.GFNet(generator=g), image, CHECK_B,
+                    {"embedding.weight", "embedding.bias"})
+    out["CoAtNet"] = (lambda g: ZV.CoAtNet(3, 224, generator=g), image, CHECK_B, set())
+    for name in ("CrossFormer", "MOATransformer", "DAT"):
+        out[name] = (lambda g, cls=getattr(ZT, name): cls(generator=g), image, CHECK_B, set())
+    return out
+
+
+class PinnedKinks:
+    """``PinnedRelu`` for every kink of phase 18's classes: ``torch.relu``,
+    the max pools (``F.max_pool2d``, ``F.max_pool1d``, ``torch.amax``) and
+    the floors of ``grid_sample_bilinear``'s sample coordinates. The CPU's
+    pass records each call's decisions (relu's signs, the pools' argmax,
+    the sample cells); ``own()`` lets the card decide for itself and counts
+    where it differs; after ``replay()`` the card takes the recorded
+    decisions: relu as ``x * mask``, a pool as a gather of the recorded
+    elements, and a sample whose cell differs as the bilinear blend of the
+    recorded cell's corners (extrapolating a rounding's width), whose
+    gradients are the CPU's branch's. ``flips`` and ``total`` count the
+    card's own decisions that differ, by kind; a max pool's choice differs
+    where the recorded element is not the card's max, and ``max_gap`` is
+    the largest such gap over the pool's largest max: near-equal elements
+    (rounding) choose either way, where the pooled tokens are near copies
+    of each other (CoAtNet's sequence), without moving the gradients."""
+
+    def __init__(self, torch):
+        from ser_tpu_torch.ops import attention_zoo_transformers as ZT
+
+        F = torch.nn.functional
+        self.torch = torch
+        self.sites = [(torch, "relu", self.relu), (torch, "amax", self.amax),
+                      (F, "max_pool2d", self.max_pool2d), (F, "max_pool1d", self.max_pool1d),
+                      (ZT, "grid_sample_bilinear", self.grid_sample)]
+        self.real = {name: getattr(owner, name) for owner, name, _ in self.sites}
+        self.records, self.i, self.mode, self.max_gap = [], 0, "record", 0.0
+        self.flips = {"relu": 0, "max": 0, "cell": 0}
+        self.total = dict.fromkeys(self.flips, 0)
+
+    def __enter__(self):
+        for owner, name, fn in self.sites:
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, _ in self.sites:
+            setattr(owner, name, self.real[name])
+
+    def own(self):
+        self.mode, self.i, self.max_gap = "own", 0, 0.0
+        self.flips = dict.fromkeys(self.flips, 0)
+        self.total = dict.fromkeys(self.flips, 0)
+
+    def replay(self):
+        self.own()
+        self.mode = "replay"
+
+    def _decide(self, kind, mine, differs=None):
+        """Record ``mine`` on the CPU pass; else count where it differs from
+        the recorded decision (``differs(recorded)``, by default ``!=``)
+        and return the one to apply."""
+        if self.mode == "record":
+            self.records.append(mine.detach().clone())
+            return mine
+        recorded = self.records[self.i].to(mine.device)
+        self.i += 1
+        flipped = mine != recorded if differs is None else differs(recorded)
+        self.flips[kind] += int(flipped.sum())
+        self.total[kind] += flipped.numel()
+        return recorded if self.mode == "replay" else mine
+
+    def relu(self, x):
+        mask = self._decide("relu", x.detach() > 0)
+        return x * mask if self.mode == "replay" else self.real["relu"](x)
+
+    @staticmethod
+    def _taken(x, idx):
+        """The elements of each plane of ``x`` a pool's indices name."""
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    def _max_differs(self, out, taken):
+        """Where the recorded element is not the card's max (an element, not
+        an index: a tie's indices may differ); the largest gap between the
+        two, over the largest max, goes to ``max_gap``."""
+        out, taken = out.detach(), taken.detach()
+        gap = ((out - taken).abs().max() / out.abs().max().clamp_min(1e-30)).item()
+        self.max_gap = max(self.max_gap, gap)
+        return taken != out
+
+    def _pool(self, name, x, k):
+        out, idx = self.real[name](x, k, return_indices=True)
+        idx = self._decide("max", idx, lambda rec: self._max_differs(out, self._taken(x, rec)))
+        return self._taken(x, idx) if self.mode == "replay" else out
+
+    def max_pool2d(self, x, k):
+        return self._pool("max_pool2d", x, k)
+
+    def max_pool1d(self, x, k):
+        return self._pool("max_pool1d", x, k)
+
+    def amax(self, x, dim):
+        out = self.real["amax"](x, dim)
+        idx = self._decide("max", x.detach().argmax(dim, keepdim=True), lambda rec: (
+            self._max_differs(out, x.gather(dim, rec).squeeze(dim))))
+        return x.gather(dim, idx).squeeze(dim) if self.mode == "replay" else out
+
+    def grid_sample(self, x, grid):
+        torch = self.torch
+        B, C, H, W = x.shape
+        gx = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+        gy = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+        cells = self._decide("cell", torch.stack([gx.detach().floor(), gy.detach().floor()]))
+        out = self.real["grid_sample_bilinear"](x, grid)
+        if self.mode != "replay":
+            return out
+        x0, y0 = cells
+        wx, wy = gx - x0, gy - y0
+
+        def tap(yi, xi):
+            valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+            flat = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long().reshape(B, 1, -1)
+            vals = x.reshape(B, C, H * W).gather(2, flat.expand(B, C, -1))
+            return (vals * valid.reshape(B, 1, -1)).reshape(out.shape)
+
+        wx, wy = wx[:, None], wy[:, None]
+        pinned = (tap(y0, x0) * (1 - wx) * (1 - wy) + tap(y0, x0 + 1) * wx * (1 - wy)
+                  + tap(y0 + 1, x0) * (1 - wx) * wy + tap(y0 + 1, x0 + 1) * wx * wy)
+        own = torch.stack([gx.detach().floor(), gy.detach().floor()])
+        flipped = (own != cells).any(0)[:, None]
+        return torch.where(flipped, pinned, out)
+
+
+def last_zoo_phase(torch, card):
+    """Phase 18 (the module docstring): each class card against CPU at its
+    check batch, a forward and a forward with the backward of a fixed
+    weighted sum, the card replaying the CPU's kinks (``PinnedKinks``); no
+    port kernel; ms a forward and a forward with its backward at the timed
+    batch, and the peak memory of each."""
+    from ser_tpu_torch.ops.init import generator
+    from ser_tpu_torch.ops.kernels import reset_launches
+
+    for name, (build, x_timed, check_b, dead) in last_zoo_classes(torch).items():
+        t0 = time.perf_counter()
+        pair = {}
+        for dev in ("cpu", "cuda"):
+            m = build(generator(0))
+            randomize_zoo(torch, m, seed=5)
+            pair[dev] = m.to(dev).eval()
+        x = x_timed[:check_b]
+        xs = {"cpu": x.clone().requires_grad_(), "cuda": x.cuda().requires_grad_()}
+        reset_launches()
+        with PinnedKinks(torch) as kinks:
+            out_cpu = pair["cpu"](xs["cpu"])
+            w = torch.randn(out_cpu.shape, generator=torch.Generator().manual_seed(6))
+            (out_cpu * w).sum().backward()
+            # the card's own kinks, reported; then the CPU's, checked
+            kinks.own()
+            (pair["cuda"](xs["cuda"].detach().clone().requires_grad_()) * w.cuda()).sum() \
+                .backward()
+            own_worst = grad_check(torch, pair["cpu"], pair["cuda"])[0]
+            for p in pair["cuda"].parameters():
+                p.grad = None
+            kinks.replay()
+            out_card = pair["cuda"](xs["cuda"])
+            (out_card * w.cuda()).sum().backward()
+        no_port_kernel(torch, f"zoo {name}")
+        out, ref = out_card.detach().cpu(), out_cpu.detach()
+        worst, dead_cpu, dead_card = grad_check(torch, pair["cpu"], pair["cuda"])
+        gx, gx_ref = xs["cuda"].grad.cpu(), xs["cpu"].grad
+        gx_worst = ((gx - gx_ref).abs().max() / (GRAD_RTOL * gx_ref.abs().max())).item()
+        err = (out - ref).abs().max().item()
+        flips = {k: f"{kinks.flips[k]} of {kinks.total[k]}" for k in kinks.flips
+                 if kinks.total[k]}
+        gap = (f", the largest gap of a flipped max {kinks.max_gap:.2e}"
+               if kinks.total["max"] else "")
+        print(f"[zoo18] {name} {[check_b, *x.shape[1:]]} -> {list(ref.shape)}: max|card - CPU| "
+              f"{err:.3e} (max|out| {ref.abs().max().item():.3e}), gradients {worst:.3f} and "
+              f"input gradient {gx_worst:.3f} of the tolerance ({own_worst:.3f} on the card's "
+              f"own kinks); kinks flipped {flips or 'none'}{gap}; no port kernel")
+        check(torch.isfinite(out).all().item() and out.shape == ref.shape,
+              f"zoo {name}: non-finite or misshapen output")
+        check(torch.allclose(out, ref, rtol=1e-3, atol=1e-4),
+              f"zoo {name}: card and CPU disagree beyond rtol 1e-3, atol 1e-4")
+        check(worst <= 1.0 and gx_worst <= 1.0 and dead_cpu == dead_card == dead,
+              f"zoo {name}: gradients card and CPU disagree ({worst}, {gx_worst}) or the "
+              f"parameters without one differ ({sorted(dead_cpu)}, {sorted(dead_card)})")
+        check(kinks.flips["relu"] <= 1e-5 * max(kinks.total["relu"], 1)
+              and kinks.max_gap <= 1e-4, f"zoo {name}: the card's forward crossed "
+              f"{kinks.flips['relu']} ReLU kinks, or chose a max {kinks.max_gap} below another")
+        del pair["cpu"], xs, out_cpu, out_card, out, ref, gx, gx_ref
+        m = pair.pop("cuda")
+        for p in m.parameters():
+            p.grad = None
+        xc = x_timed.cuda()
+        with torch.no_grad():
+            out_shape = m(xc[:1]).shape[1:]
+        wc = torch.randn(out_shape, generator=torch.Generator().manual_seed(7)).cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(torch, lambda: m(xc), warmup=2, iters=ZOO_ITERS)
+        fwd_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        xg = xc.clone().requires_grad_()
+        torch.cuda.reset_peak_memory_stats()
+        both_ms = cuda_ms(torch, lambda: (m(xg) * wc).sum().backward(), warmup=2,
+                          iters=ZOO_ITERS)
+        both_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        no_port_kernel(torch, f"zoo {name} timed")
+        print(f"[time] {card} | zoo {name} {list(x_timed.shape)}: forward {fwd_ms:.4f} ms "
+              f"(peak {fwd_gib:.3f} GiB), forward and backward {both_ms:.4f} ms (peak "
+              f"{both_gib:.3f} GiB), median of {ZOO_ITERS}; {time.perf_counter() - t0:.1f} s")
+        del m, xc, xg, wc
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4429,6 +4700,11 @@ def main() -> int:
     artifacts_tmp.cleanup()
     print(f"[tools] phase 17 in {time.perf_counter() - t0:.1f} s; launches by path: "
           f"{tools_launches}")
+
+    # 18. the attention zoo's last 15 classes: the vision blocks, the backbones
+    t0 = time.perf_counter()
+    last_zoo_phase(torch, card)
+    print(f"[zoo18] phase 18 in {time.perf_counter() - t0:.1f} s")
     bf16_record["launches_by_path"].update(tools_launches[rank1_kernel.NAME_BF16])
     bf16_record["launches"] = sum(bf16_record["launches_by_path"].values())
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],

@@ -418,7 +418,178 @@ def zoo_leaves(module) -> list[tuple[str, str, str]]:
             out += _conv("sr_conv", "sr_conv") + [("sr_ln_scale", "sr_ln.weight", "same"),
                                                   ("sr_ln_bias", "sr_ln.bias", "same")]
         return out + (_conv("transform_conv", "transform.conv") if m.apply_transform else [])
-    raise KeyError(f"no JAX parameter table for the zoo class {name}")
+    leaves = _vision_leaves(name, m)
+    if leaves is None:
+        leaves = _backbone_leaves(name, m)
+    if leaves is None:
+        raise KeyError(f"no JAX parameter table for the zoo class {name}")
+    return leaves
+
+
+def _ln(jax, key):
+    return [(f"{jax}_scale", f"{key}.weight", "same"), (f"{jax}_bias", f"{key}.bias", "same")]
+
+
+def _mbconv(jax, key, m):
+    """An MBConvBlock's leaves under the prefixes ``jax`` and ``key``."""
+    out = (_conv(f"{jax}expand", f"{key}_expand_conv", bias=False)
+           + _bn(f"{jax}expand_bn", f"{key}_bn0")) if m.expand else []
+    return out + [*_conv(f"{jax}dw", f"{key}_depthwise_conv", bias=False),
+                  *_bn(f"{jax}dw_bn", f"{key}_bn1"), *_conv(f"{jax}se_reduce", f"{key}_se_reduce"),
+                  *_conv(f"{jax}se_expand", f"{key}_se_expand"),
+                  *_conv(f"{jax}project", f"{key}_project_conv", bias=False),
+                  *_bn(f"{jax}project_bn", f"{key}_bn2")]
+
+
+def _vision_leaves(name, m):
+    """The leaves of the classes of ``ops/attention_zoo_vision.py``, or None."""
+    if name == "ResidualAttention":
+        return _conv("fc", "fc", bias=False)
+    if name == "ParNetAttention":
+        return [*_conv("sse_conv", "sse.1"), *_conv("conv1", "conv1x1.0"),
+                *_bn("bn1", "conv1x1.1"), *_conv("conv3", "conv3x3.0"), *_bn("bn3", "conv3x3.1")]
+    if name == "CrissCrossAttention":
+        return [*(leaf for c in ("query_conv", "key_conv", "value_conv") for leaf in _conv(c, c)),
+                ("gamma", "gamma", "same")]
+    if name == "WeightedPermuteMLP":
+        bias = m.mlp_c.bias is not None
+        return [*(leaf for b in "chw" for leaf in _linear(f"mlp_{b}", f"mlp_{b}", bias)),
+                *_linear("reweight_fc1", "reweighting.fc1"),
+                *_linear("reweight_fc2", "reweighting.fc2"), *_linear("proj", "proj")]
+    if name == "OutlookAttention":
+        return [*_linear("v_pj", "v_pj", bias=False), *_linear("attn", "attn"),
+                *_linear("proj", "proj")]
+    if name == "MobileViTAttention":
+        out = [leaf for i in range(1, 5) for leaf in _conv(f"conv{i}", f"conv{i}")]
+        for i in range(len(m.trans.layers)):
+            attn, ffn, key = f"layer{i}_attn", f"layer{i}_ffn", f"trans.layers.{i}"
+            out += [*_ln(f"{attn}_ln", f"{key}.0.ln"),
+                    *_linear(f"{attn}_to_qkv", f"{key}.0.fn.to_qkv", bias=False),
+                    *_linear(f"{attn}_to_out", f"{key}.0.fn.to_out.0"),
+                    *_ln(f"{ffn}_ln", f"{key}.1.ln"), *_linear(f"{ffn}_fc1", f"{key}.1.fn.net.0"),
+                    *_linear(f"{ffn}_fc2", f"{key}.1.fn.net.3")]
+        return out
+    if name == "GFNet":
+        out = [*_conv("patch_proj", "patch_embed.proj"), *_linear("embedding", "embedding")]
+        for i in range(len(m.blocks)):
+            jax, key = f"block{i}", f"blocks.{i}"
+            out += [*_ln(f"{jax}_norm1", f"{key}.norm1"),
+                    (f"{jax}_complex_weight", f"{key}.filter.complex_weight", "same"),
+                    *_ln(f"{jax}_norm2", f"{key}.norm2"), *_linear(f"{jax}_fc1", f"{key}.mlp.fc1"),
+                    *_linear(f"{jax}_fc2", f"{key}.mlp.fc2")]
+        return out + _linear("head", "head")
+    if name == "HaloAttention":
+        return [*_linear("to_q", "to_q", bias=False), *_linear("to_kv", "to_kv", bias=False),
+                *_linear("to_out", "to_out"), ("rel_height", "rel_pos_emb.rel_height", "same"),
+                ("rel_width", "rel_pos_emb.rel_width", "same")]
+    if name == "ACmix":
+        return [("rate1", "rate1", "same"), ("rate2", "rate2", "same"),
+                *(leaf for c in ("conv1", "conv2", "conv3", "conv_p") for leaf in _conv(c, c)),
+                *_conv("fc", "fc", bias=False), *_conv("dep_conv", "dep_conv", bias=False)]
+    if name == "AxialAttention":
+        return [leaf for i in range(2) for leaf in (
+            _linear(f"axis{i}_to_q", f"axial_attentions.{i}.fn.to_q", bias=False)
+            + _linear(f"axis{i}_to_kv", f"axial_attentions.{i}.fn.to_kv", bias=False)
+            + _linear(f"axis{i}_to_out", f"axial_attentions.{i}.fn.to_out"))]
+    if name == "MBConvBlock":
+        return _mbconv("", "", m)
+    if name == "CoAtNet":
+        out = [*_conv("s0_0", "s0.0"), *_conv("s0_2", "s0.2")]
+        for i in range(3):
+            out += _conv(f"mlp{i}_0", f"mlp{i}.0") + _conv(f"mlp{i}_2", f"mlp{i}.2")
+        out += _mbconv("s1/", "s1.", m.s1) + _mbconv("s2/", "s2.", m.s2)
+        for s in ("s3", "s4"):
+            out += [leaf for n in "qkvo" for leaf in _linear(f"{s}/fc_{n}", f"{s}.fc_{n}")]
+        for i in (3, 4):
+            out += _linear(f"mlp{i}_0", f"mlp{i}.0") + _linear(f"mlp{i}_2", f"mlp{i}.2")
+        return out
+    return None
+
+
+def _backbone_leaves(name, m):
+    """The leaves of the classes of ``ops/attention_zoo_transformers.py``, or None."""
+    if name == "CrossFormer":
+        out = [leaf for i in range(len(m.patch_embed.projs))
+               for leaf in _conv(f"patch_proj{i}", f"patch_embed.projs.{i}")]
+        out += _ln("patch_norm", "patch_embed.norm")
+        for i, layer in enumerate(m.layers):
+            for d in range(len(layer.blocks)):
+                jax, key = f"layer{i}_block{d}", f"layers.{i}.blocks.{d}"
+                out += [*_ln(f"{jax}_norm1", f"{key}.norm1"),
+                        *_linear(f"{jax}_attn_qkv", f"{key}.attn.qkv"),
+                        *_linear(f"{jax}_attn_proj", f"{key}.attn.proj"),
+                        *_linear(f"{jax}_attn_pos_proj", f"{key}.attn.pos.pos_proj")]
+                for j in (1, 2, 3):
+                    out += (_ln(f"{jax}_attn_pos{j}_ln", f"{key}.attn.pos.pos{j}.0")
+                            + _linear(f"{jax}_attn_pos{j}_fc", f"{key}.attn.pos.pos{j}.2"))
+                out += [*_ln(f"{jax}_norm2", f"{key}.norm2"),
+                        *_linear(f"{jax}_mlp_fc1", f"{key}.mlp.fc1"),
+                        *_linear(f"{jax}_mlp_fc2", f"{key}.mlp.fc2")]
+            if layer.downsample is not None:
+                down = f"layers.{i}.downsample"
+                out += _ln(f"layer{i}_merge_norm", f"{down}.norm")
+                out += [leaf for j in range(len(layer.downsample.reductions))
+                        for leaf in _conv(f"layer{i}_merge_red{j}", f"{down}.reductions.{j}")]
+        return out + _ln("norm", "norm") + _linear("head", "head")
+    if name == "MOATransformer":
+        out = [*_conv("patch_proj", "patch_embed.proj"), *_ln("patch_norm", "patch_embed.norm")]
+        for i, layer in enumerate(m.layers):
+            for d in range(len(layer.blocks)):
+                jax, key = f"layer{i}_block{d}", f"layers.{i}.blocks.{d}"
+                out += [*_ln(f"{jax}_norm1", f"{key}.norm1"),
+                        (f"{jax}_attn_rpb_table", f"{key}.attn.relative_position_bias_table",
+                         "same"),
+                        *_linear(f"{jax}_attn_qkv", f"{key}.attn.qkv"),
+                        *_linear(f"{jax}_attn_proj", f"{key}.attn.proj"),
+                        *_ln(f"{jax}_norm2", f"{key}.norm2"),
+                        *_linear(f"{jax}_mlp_fc1", f"{key}.mlp.fc1"),
+                        *_linear(f"{jax}_mlp_fc2", f"{key}.mlp.fc2")]
+            key = f"layers.{i}"
+            if layer.glb_attn is not None:
+                glb = f"{key}.glb_attn"
+                out += [*_ln(f"layer{i}_gnorm1", f"{key}.norm1"),
+                        *_ln(f"layer{i}_gnorm2", f"{key}.norm2"),
+                        *_conv(f"layer{i}_post_conv", f"{key}.post_conv"),
+                        *_conv(f"layer{i}_glb_pre_conv", f"{glb}.pre_conv"),
+                        (f"layer{i}_glb_rpb_table", f"{glb}.relative_position_bias_table",
+                         "same"),
+                        *_linear(f"layer{i}_glb_q", f"{glb}.q"),
+                        *_linear(f"layer{i}_glb_kv", f"{glb}.kv"),
+                        *_linear(f"layer{i}_glb_proj", f"{glb}.proj")]
+            if layer.downsample is not None:
+                out += (_ln(f"layer{i}_merge_norm", f"{key}.downsample.norm")
+                        + _linear(f"layer{i}_merge_red", f"{key}.downsample.reduction",
+                                  bias=False))
+        return out + _ln("norm", "norm") + _linear("head", "head")
+    if name == "DAT":
+        out = [*_conv("patch_proj", "patch_proj.0"), *_ln("patch_norm", "patch_proj.1.norm")]
+        for i, stage in enumerate(m.stages):
+            key = f"stages.{i}"
+            if stage.proj is not None:
+                out += _conv(f"stage{i}_proj", f"{key}.proj")
+            for d, attn in enumerate(stage.attns):
+                jax, att = f"stage{i}_block{d}", f"{key}.attns.{d}"
+                out += [*_ln(f"{jax}_norm1", f"{key}.layer_norms.{2 * d}.norm"),
+                        *_ln(f"{jax}_norm2", f"{key}.layer_norms.{2 * d + 1}.norm")]
+                if hasattr(attn, "proj_qkv"):  # L or S
+                    out += [(f"{jax}_attn_rpb_table", f"{att}.relative_position_bias_table",
+                             "same"), *_linear(f"{jax}_attn_qkv", f"{att}.proj_qkv"),
+                            *_linear(f"{jax}_attn_proj", f"{att}.proj_out")]
+                else:  # D
+                    out += [leaf for p in ("q", "k", "v", "out")
+                            for leaf in _conv(f"{jax}_attn_proj_{p}", f"{att}.proj_{p}")]
+                    out += [*_conv(f"{jax}_attn_off_conv", f"{att}.conv_offset.0"),
+                            *_ln(f"{jax}_attn_off_ln", f"{att}.conv_offset.1.norm"),
+                            *_conv(f"{jax}_attn_off_out", f"{att}.conv_offset.3", bias=False)]
+                    if attn.use_pe:
+                        out.append((f"{jax}_attn_rpe_table", f"{att}.rpe_table", "same"))
+                out += (_linear(f"{jax}_mlp_fc1", f"{key}.mlps.{d}.chunk.linear1")
+                        + _linear(f"{jax}_mlp_fc2", f"{key}.mlps.{d}.chunk.linear2"))
+        for i in range(len(m.down_projs)):
+            out += (_conv(f"down{i}", f"down_projs.{i}.0", bias=False)
+                    + _ln(f"down{i}_norm", f"down_projs.{i}.1.norm"))
+        return out + _ln("cls_norm", "cls_norm.norm") + _linear("cls_head", "cls_head")
+    return None
 
 
 def zoo_from_jax(module, params) -> dict[str, torch.Tensor]:
