@@ -309,6 +309,23 @@ Phases, each fatal on failure:
     flipped decisions counted; (b) every kernel counter 0; (c) ms a forward
     and a forward with its backward (median of 10) at the timed batch, and
     the peak memory of each.
+19. the bench CLIs in this process, ``main()`` with ``sys.argv`` set and
+    the output caught: (a) ``python -m ser_tpu_torch.bench`` in full: its
+    line has the JAX ``bench.py``'s keys, ``backend`` ``cuda``, the card's
+    name and power limit in ``device`` and finite, positive numbers; the
+    recurrence kernel launched once a timed eval pass, the rank-1 kernel 220
+    times a timed [110, 80] train step, the MFCC kernel once a timed
+    front-end pass, and no other kernel; then the median ms of the train
+    step's host-to-device copy; (b) ``python -m ser_tpu_torch.bench_zoo
+    --models MARN1_onlysp DialogueRNN --iters 2 --save``: the saved
+    document's keys, the recurrence kernel once an onlysp pass and nothing
+    for DialogueRNN; (c) ``--check`` of that file (threshold 0.25: the round
+    trip, not the host's spread, under which two readings of one process
+    have differed by 1.45x); (d) ``--train --models MARN1_onlysp
+    --iters 2`` in f32 and in ``--dtype bf16``: 220 launches of the rank-1
+    kernel, or of its bf16 form, a step; (e) ``--check
+    baselines/zoo_r04.json`` refused (backend ``tpu``) before any model
+    runs.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -3834,6 +3851,187 @@ def last_zoo_phase(torch, card):
         torch.cuda.empty_cache()
 
 
+# phase 19: the bench CLIs in this process. ``bench``'s line has the JAX
+# script's keys; its times are the port's own (bench.time_calls), whose calls
+# are counted here and the kernels' launches held against them
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "noisy", "detail"]
+BENCH_DETAIL_KEYS = [
+    "seconds_per_pass", "n_utterances", "eval_efficiency", "train_utterances_per_sec",
+    "train_seconds_per_step", "train_efficiency", "train_shape",
+    "mfcc_frontend_utterances_per_sec", "mfcc_frontend_wav_seconds_per_utt",
+    "flagship_vs_zoo_baseline", "backend", "device"]
+EFFICIENCY_KEYS = ["flops_per_pass", "tflops_effective", "pct_f32_peak"]
+BENCH_TRAIN_T = 110  # synthetic_like_train's padded length: 2T rank-1 launches a step
+
+
+def run_main(module, argv):
+    """``module.main()`` with ``sys.argv`` set to ``argv``, its standard
+    output caught: (its exit code, or a ``SystemExit``'s message, and that
+    output)."""
+    import contextlib
+    import io
+
+    saved, buf = sys.argv, io.StringIO()
+    sys.argv = [module.__name__] + list(argv)
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = module.main()
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = saved
+    return code, buf.getvalue()
+
+
+def bench_phase(torch, card):
+    """Phase 19 (the module docstring). Returns the launches of every kernel
+    by path, each counted from 0 just before its run."""
+    from ser_tpu_torch import bench, bench_zoo
+    from ser_tpu_torch.data.synthetic import synthetic_like_train
+    from ser_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from ser_tpu_torch.ops.kernels.lsthm import NAME
+    from ser_tpu_torch.ops.kernels.mfcc import NAME as MFCC
+    from ser_tpu_torch.ops.kernels.rank1 import NAME as RANK1, NAME_BF16 as RANK1_BF16
+    from ser_tpu_torch.train.trainer import ModelTrainer
+
+    launches = {NAME: {}, MFCC: {}, RANK1: {}, RANK1_BF16: {}}
+    timed = []  # (the timed function's name, its calls) of every bench.time_calls
+    time_calls = bench.time_calls
+
+    def counted(fn, *args, **kwargs):
+        t = time_calls(fn, *args, **kwargs)
+        timed.append((fn.__name__, t.calls))
+        return t
+
+    def run(module, argv):
+        timed.clear()
+        reset_launches()
+        code, out = run_main(module, argv)
+        torch.cuda.synchronize()
+        return code, out, dict(LAUNCHES), list(timed)
+
+    def positive(x):
+        return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bench_")
+    tmp = Path(tmp_dir.name)
+    bench.time_calls = counted
+    try:
+        # (a) python -m ser_tpu_torch.bench, in full
+        t0 = time.perf_counter()
+        code, out, got, calls = run(bench, [])
+        line = json.loads(out.strip().splitlines()[-1])
+        detail = line.get("detail", {})
+        n = {name: sum(c for f, c in calls if f == name)
+             for name in ("eval_pass", "train_step", "frontend_pass")}
+        print(f"[bench] {card} | python -m ser_tpu_torch.bench: {json.dumps(line)}")
+        print(f"[bench] calls timed {calls}; launches {got}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(code == 0 and list(line) == BENCH_KEYS and list(detail) == BENCH_DETAIL_KEYS,
+              f"bench: exit {code}, keys {list(line)}, detail {list(detail)}")
+        numbers = [line["value"], line["vs_baseline"], *(detail[k] for k in (
+            "seconds_per_pass", "n_utterances", "train_utterances_per_sec",
+            "train_seconds_per_step", "mfcc_frontend_utterances_per_sec",
+            "mfcc_frontend_wav_seconds_per_utt"))]
+        if detail["flagship_vs_zoo_baseline"] is not None:
+            numbers.append(detail["flagship_vs_zoo_baseline"])
+        for k in ("eval_efficiency", "train_efficiency"):
+            check(list(detail[k]) == EFFICIENCY_KEYS, f"bench {k}: {detail[k]}")
+            numbers += list(detail[k].values())
+        check(all(positive(x) for x in numbers) and detail["backend"] == "cuda"
+              and detail["device"] == card and detail["train_shape"] == [BENCH_TRAIN_T, 80]
+              and detail["n_utterances"] == 1606,
+              f"bench: a value not finite and positive, or the wrong backend, card or "
+              f"shape: {line}")
+        want = {NAME: n["eval_pass"], RANK1: 2 * BENCH_TRAIN_T * n["train_step"],
+                MFCC: n["frontend_pass"]}
+        check({k: v for k, v in got.items() if v} == want,
+              f"bench launched {got}, want {want} from the calls timed {calls}")
+        launches[NAME]["bench, eval passes [82, 31]"] = got[NAME]
+        launches[RANK1]["bench, train steps [110, 80]"] = got[RANK1]
+        launches[MFCC]["bench, front-end passes [1606, 4000]"] = got[MFCC]
+
+        # the host-to-device copy inside a train step (the step's batch is numpy)
+        batch = synthetic_like_train(seed=1)
+        trainer = ModelTrainer(model="MARN1_onlysp")
+
+        def copy_in():
+            trainer.predictor.batch_inputs(batch)
+            torch.as_tensor(batch["label"], device=trainer.device)
+            torch.cuda.synchronize()
+
+        copy_ms = []
+        for _ in range(12):
+            t1 = time.perf_counter()
+            copy_in()
+            copy_ms.append((time.perf_counter() - t1) * 1e3)
+        copy_ms = statistics.median(copy_ms[2:])
+        print(f"[time] {card} | the train step's host-to-device copy [110, 80] (x, qmask, "
+              f"umask, labels; median of 10): {copy_ms:.4f} ms, of bench's step "
+              f"{detail['train_seconds_per_step'] * 1e3:.2f} ms")
+        del trainer
+
+        # (b) bench_zoo eval: onlysp and DialogueRNN, saved; (c) checked
+        t0 = time.perf_counter()
+        saved = tmp / "zoo.json"
+        code, out, got, calls = run(bench_zoo, [
+            "--models", "MARN1_onlysp", "DialogueRNN", "--iters", "2", "--save", str(saved)])
+        doc = json.loads(saved.read_text()) if saved.exists() else {}
+        print(f"[bench] {card} | bench_zoo eval: {out.strip().splitlines()[:2]}; calls timed "
+              f"{calls}; launches {got}; {time.perf_counter() - t0:.1f} s")
+        check(code == 0 and [f for f, _ in calls] == ["eval_pass"] * 2,
+              f"bench_zoo eval: exit {code}, calls {calls}")
+        check(list(doc) == ["backend", "device", "n_utterances", "dtype", "models"]
+              and doc["backend"] == "cuda" and doc["device"] == card
+              and doc["dtype"] == "f32" and list(doc["models"]) == ["MARN1_onlysp",
+                                                                    "DialogueRNN"]
+              and all(list(r) == ["ms_per_pass", "utterances_per_sec", "compile_s",
+                                  *EFFICIENCY_KEYS] and all(positive(v) for v in r.values())
+                      for r in doc["models"].values()), f"bench_zoo --save: {doc}")
+        check({k: v for k, v in got.items() if v} == {NAME: calls[0][1]},
+              f"bench_zoo eval launched {got}, want {calls[0][1]} of {NAME} "
+              "(onlysp's passes; DialogueRNN runs no port kernel)")
+        what = "bench_zoo, MARN1_onlysp eval passes"
+        launches[NAME][what] = got[NAME]
+        code, out, got, calls = run(bench_zoo, [
+            "--models", "MARN1_onlysp", "--iters", "2", "--check", str(saved),
+            "--check_threshold", "0.25"])
+        ratio = [x for x in out.splitlines() if x.startswith("MARN1_onlysp: ")]
+        print(f"[bench] bench_zoo --check of that file: exit {code}, {ratio}; launches {got}")
+        check(code == 0 and len(ratio) == 1 and got[NAME] == calls[0][1],
+              f"bench_zoo --check round trip: exit {code}, {out}")
+        launches[NAME][what] += got[NAME]
+
+        # (d) bench_zoo --train, f32 and bf16
+        for dtype, kernel in (("f32", RANK1), ("bf16", RANK1_BF16)):
+            t0 = time.perf_counter()
+            code, out, got, calls = run(bench_zoo, [
+                "--train", "--models", "MARN1_onlysp", "--iters", "2", "--dtype", dtype])
+            res = json.loads(out.strip().splitlines()[0])["MARN1_onlysp"]
+            print(f"[bench] {card} | bench_zoo --train --dtype {dtype}: {json.dumps(res)}; "
+                  f"calls timed {calls}; launches {got}; {time.perf_counter() - t0:.1f} s")
+            want = {kernel: 2 * BENCH_TRAIN_T * calls[0][1]}
+            check(code == 0 and list(res) == ["ms_per_step", "utterances_per_sec",
+                                              "compile_s", *EFFICIENCY_KEYS]
+                  and all(positive(v) for v in res.values()),
+                  f"bench_zoo --train --dtype {dtype}: exit {code}, {res}")
+            check({k: v for k, v in got.items() if v} == want,
+                  f"bench_zoo --train --dtype {dtype} launched {got}, want {want}")
+            launches[kernel][f"bench_zoo --train --dtype {dtype}, MARN1_onlysp steps"] = \
+                got[kernel]
+
+        # (e) a TPU baseline is refused before anything runs
+        code, out, got, calls = run(bench_zoo, [
+            "--models", "MARN1_onlysp", "--check", str(ROOT / "baselines" / "zoo_r04.json")])
+        print(f"[bench] bench_zoo --check baselines/zoo_r04.json: {code}")
+        check(isinstance(code, str) and "'tpu'" in code and not calls and not any(
+            got.values()), f"bench_zoo took a TPU baseline: {code}, {out}")
+    finally:
+        bench.time_calls = time_calls
+        tmp_dir.cleanup()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4705,16 +4903,25 @@ def main() -> int:
     t0 = time.perf_counter()
     last_zoo_phase(torch, card)
     print(f"[zoo18] phase 18 in {time.perf_counter() - t0:.1f} s")
+
+    # 19. python -m ser_tpu_torch.bench and bench_zoo, in this process
+    t0 = time.perf_counter()
+    bench_launches = bench_phase(torch, card)
+    print(f"[bench] phase 19 in {time.perf_counter() - t0:.1f} s; launches by path: "
+          f"{bench_launches}")
     bf16_record["launches_by_path"].update(tools_launches[rank1_kernel.NAME_BF16])
+    bf16_record["launches_by_path"].update(bench_launches[rank1_kernel.NAME_BF16])
     bf16_record["launches"] = sum(bf16_record["launches_by_path"].values())
     mfcc_launches = {"MARN1_onlysp wav request": wav_launches[MFCC],
-                     "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches}
+                     "DialogueRNN predict CLI --audio_frontend mfcc": drnn_wav_launches,
+                     **bench_launches[MFCC]}
     rank1_launches = {"MARN1_onlysp ModelTrainer, 2 epochs": train_launches[RANK1],
                       **variant_launches, **serve_launches[RANK1], **zoo_launches[RANK1],
-                      **dp_launches[RANK1], **tp_launches[RANK1], **tools_launches[RANK1]}
+                      **dp_launches[RANK1], **tp_launches[RANK1], **tools_launches[RANK1],
+                      **bench_launches[RANK1]}
     lsthm_launches = {"MARN1_onlysp Predictor, three requests": main_launches,
                       **serve_launches[NAME], **zoo_launches[NAME], **dp_launches[NAME],
-                      **tp_launches[NAME], **tools_launches[NAME]}
+                      **tp_launches[NAME], **tools_launches[NAME], **bench_launches[NAME]}
 
     print(json.dumps({"kernels": [{
         "name": NAME, "route": "cuda",

@@ -2,11 +2,11 @@
 
 Copies of the JAX package's ``data/synthetic.py`` (``synthetic_batch``, the
 pickle writers ``generate_iemocap_pickles``, with its raw-waveform table, and
-``generate_meld_pickles``) and of ``bench.py::iemocap_eval_batch``: the same
-seed gives the same arrays. IEMOCAP labels follow a dialogue-level Markov
-chain and each modality's features are class prototypes plus a speaker
-offset plus noise, so a trained model learns them; the waveforms carry the
-class in their spectral envelope. MELD dialogues draw their labels and
+``generate_meld_pickles``) and of ``bench.py``'s ``iemocap_eval_batch`` and
+``synthetic_like_train``: the same seed gives the same arrays. IEMOCAP
+labels follow a dialogue-level Markov chain and each modality's features
+are class prototypes plus a speaker offset plus noise, so a trained model
+learns them; the waveforms carry the class in their spectral envelope. MELD dialogues draw their labels and
 speakers (9 parties) uniformly, with features from class prototypes.
 """
 
@@ -62,6 +62,12 @@ def iemocap_eval_batch(seed=0):
     qmask[np.arange(L)[:, None], np.arange(B)[None, :], sp] = 1.0
     batch["qmask"] = qmask * umask.T[:, :, None]
     return batch, int(lengths.sum())
+
+
+def synthetic_like_train(seed=1):
+    """The reference's train shape: 80 dialogues padded to 110, at least 20
+    utterances each."""
+    return synthetic_batch(L=110, B=80, seed=seed, min_len=20)
 
 
 def _make_dialogue(rng, n_utt, n_classes, protos, speaker_protos, noise):
