@@ -1,0 +1,8 @@
+"""Host ms a step of the program's ``ser#forward`` span in the traced slice:
+the train forward, encoders, recurrence, tail and head."""
+
+from benchmark.metrics.spans import host_ms_per_item
+
+
+def read(run):
+    return host_ms_per_item(run, "ser#forward")

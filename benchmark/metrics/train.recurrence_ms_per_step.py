@@ -1,0 +1,8 @@
+"""Host ms a step of the program's ``ser#recurrence`` span in the traced slice:
+the bidirectional train loop (``train_recurrence`` or ``fused_directions``)."""
+
+from benchmark.metrics.spans import host_ms_per_item
+
+
+def read(run):
+    return host_ms_per_item(run, "ser#recurrence")

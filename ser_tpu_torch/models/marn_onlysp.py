@@ -39,6 +39,7 @@ from ser_tpu_torch.ops.kernels.lsthm import lsthm_onlysp_recurrence_bidir
 from ser_tpu_torch.ops.kernels.rank1 import bind as rank1_bind
 from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout, train_generator
 from ser_tpu_torch.ops.masking import reverse_seq, scatter_parties, select_parties
+from ser_tpu_torch.utils import profiling
 
 
 class MARNCellOnlySP(nn.Module):
@@ -91,32 +92,33 @@ def train_recurrence(seqs, consts, generator: torch.Generator,
     A step draws three dropout masks from ``generator`` and the rank-1
     attention's mask from one int32 seed per call, also drawn from it on its
     device, so drawing costs the host no sync."""
-    xl_proj, xa_proj, gru_x, qmask = seqs
-    K_l, b_l, K_a, b_a, gWhh, gbhh, wq, wk = consts
-    b_l, b_a, gbhh = b_l[:, None], b_a[:, None], gbhh[:, None]
-    T, _, B = xl_proj.shape[:3]
-    H = K_l.shape[-1] // 4
-    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                         device=generator.device, dtype=torch.int32)
-    zeros = lambda *s: xl_proj.new_zeros(s)
-    h_l, c_l, h_a, c_a, z = (zeros(2, B, H) for _ in range(5))
-    q = zeros(2, B, qmask.shape[-1], gWhh.shape[-2])
-    drop = lambda x: dropout(x, dropout_rate, generator)
-    attend = rank1_bind(wq, wk, seed, attn_dropout)  # wq, wk, seed, p checked once
-    ys = []
-    for t in range(T):
-        qm = qmask[t]
-        h_s = drop(gru_step(gru_x[t], select_parties(q, qm), gWhh, gbhh))
-        q = scatter_parties(q, qm, h_s)
-        c_l, h_l = lsthm_gates(
-            xl_proj[t] + torch.matmul(torch.cat([h_l, z, h_s], -1), K_l) + b_l, c_l)
-        h_l = drop(h_l)
-        c_a, h_a = lsthm_gates(
-            xa_proj[t] + torch.matmul(torch.cat([h_a, z, h_s], -1), K_a) + b_a, c_a)
-        h_a = drop(h_a)
-        z = attend(c_l, c_a, t)
-        ys.append(torch.cat([h_l, h_a, z, h_s], -1))
-    return torch.stack(ys)
+    with profiling.annotate("ser#recurrence"):
+        xl_proj, xa_proj, gru_x, qmask = seqs
+        K_l, b_l, K_a, b_a, gWhh, gbhh, wq, wk = consts
+        b_l, b_a, gbhh = b_l[:, None], b_a[:, None], gbhh[:, None]
+        T, _, B = xl_proj.shape[:3]
+        H = K_l.shape[-1] // 4
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device, dtype=torch.int32)
+        zeros = lambda *s: xl_proj.new_zeros(s)
+        h_l, c_l, h_a, c_a, z = (zeros(2, B, H) for _ in range(5))
+        q = zeros(2, B, qmask.shape[-1], gWhh.shape[-2])
+        drop = lambda x: dropout(x, dropout_rate, generator)
+        attend = rank1_bind(wq, wk, seed, attn_dropout)  # wq, wk, seed, p checked once
+        ys = []
+        for t in range(T):
+            qm = qmask[t]
+            h_s = drop(gru_step(gru_x[t], select_parties(q, qm), gWhh, gbhh))
+            q = scatter_parties(q, qm, h_s)
+            c_l, h_l = lsthm_gates(
+                xl_proj[t] + torch.matmul(torch.cat([h_l, z, h_s], -1), K_l) + b_l, c_l)
+            h_l = drop(h_l)
+            c_a, h_a = lsthm_gates(
+                xa_proj[t] + torch.matmul(torch.cat([h_a, z, h_s], -1), K_a) + b_a, c_a)
+            h_a = drop(h_a)
+            z = attend(c_l, c_a, t)
+            ys.append(torch.cat([h_l, h_a, z, h_s], -1))
+        return torch.stack(ys)
 
 
 class MARN1OnlySP(nn.Module):
@@ -192,7 +194,8 @@ class MARN1OnlySP(nn.Module):
             # the kernel computes in f32: under bf16 autocast (the serving
             # artifacts' bf16 and int8) its inputs widen here, and its plain
             # version on the CPU runs with autocast off, as the kernel does
-            with torch.autocast(x.device.type, enabled=False):
+            with torch.autocast(x.device.type, enabled=False), \
+                    profiling.annotate("ser#recurrence"):
                 ys = lsthm_onlysp_recurrence_bidir(
                     tuple(s.float() for s in seqs),
                     tuple(c.float() for c in consts))  # [L, 2, B, 512]

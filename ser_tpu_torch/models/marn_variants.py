@@ -54,6 +54,7 @@ from ser_tpu_torch.ops.encoder import EncoderLayer
 from ser_tpu_torch.ops.kernels.rank1 import bind as rank1_bind
 from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout, train_generator
 from ser_tpu_torch.ops.masking import reverse_seq, select_parties
+from ser_tpu_torch.utils import profiling
 
 H = 128  # every cell's hidden width
 D_R, D_M = 1024, 100  # RoBERTa width, the modality width the cells read
@@ -101,33 +102,34 @@ def fused_directions(cell_f, cell_b, inputs_f, inputs_b, step, init,
     seqs_b, consts_b = cell_b.gather(*inputs_b)
     seqs = [torch.stack([f, b], 1) for f, b in zip(seqs_f, seqs_b)]
     consts = [torch.stack([f, b]) for f, b in zip(consts_f, consts_b)]
-    attend, drop = None, (lambda x: x)
-    if attention:
-        *consts, wq, wk = consts
-        if generator is None:
-            seed, p = eval_seed, 0.0
-        else:
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=generator.device, dtype=torch.int32)
-            p, drop = attn_dropout, partial(dropout, p=dropout_rate, generator=generator)
-        if generator is None:
-            # wq, wk, seed, p checked once; the eval recurrence runs the f32
-            # form, so under bf16 autocast (the serving artifacts' bf16 and
-            # int8) its inputs widen here
-            kernel = rank1_bind(wq.float(), wk.float(), seed, p)
-            attend = lambda x1, x2, t: kernel(x1.float(), x2.float(), t)  # noqa: E731
-        else:
-            # a train step's dtype picks the kernel's form: f32, or bf16 in a
-            # --compute_dtype bf16 step; nothing widens here
-            attend = rank1_bind(wq, wk, seed, p)
-    T, _, B = seqs[0].shape[:3]
-    P = inputs_f[-1].shape[-1]  # every cell takes qmask last
-    carry = tuple(seqs[0].new_zeros((2,) + s) for s in init(B, P))
-    ys = []
-    for t in range(T):
-        carry, y = step(consts, carry, [s[t] for s in seqs], t, attend, drop)
-        ys.append(y)
-    return torch.stack(ys)
+    with profiling.annotate("ser#recurrence"):
+        attend, drop = None, (lambda x: x)
+        if attention:
+            *consts, wq, wk = consts
+            if generator is None:
+                seed, p = eval_seed, 0.0
+            else:
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=generator.device, dtype=torch.int32)
+                p, drop = attn_dropout, partial(dropout, p=dropout_rate, generator=generator)
+            if generator is None:
+                # wq, wk, seed, p checked once; the eval recurrence runs the f32
+                # form, so under bf16 autocast (the serving artifacts' bf16 and
+                # int8) its inputs widen here
+                kernel = rank1_bind(wq.float(), wk.float(), seed, p)
+                attend = lambda x1, x2, t: kernel(x1.float(), x2.float(), t)  # noqa: E731
+            else:
+                # a train step's dtype picks the kernel's form: f32, or bf16 in a
+                # --compute_dtype bf16 step; nothing widens here
+                attend = rank1_bind(wq, wk, seed, p)
+        T, _, B = seqs[0].shape[:3]
+        P = inputs_f[-1].shape[-1]  # every cell takes qmask last
+        carry = tuple(seqs[0].new_zeros((2,) + s) for s in init(B, P))
+        ys = []
+        for t in range(T):
+            carry, y = step(consts, carry, [s[t] for s in seqs], t, attend, drop)
+            ys.append(y)
+        return torch.stack(ys)
 
 
 def _sp_step(consts, carry, xs, t, attend, drop):

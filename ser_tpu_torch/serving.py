@@ -55,6 +55,7 @@ from ser_tpu_torch.models.registry import (TRIMODAL_TEXT, _trimodal_inputs, buil
 from ser_tpu_torch.ops.encoder_attention import encoder_attention_of
 from ser_tpu_torch.ops.init import generator
 from ser_tpu_torch.ops.kernels import LAUNCHES
+from ser_tpu_torch.utils import profiling
 
 MAGIC = b"SERT"
 _JAX_MAGIC, _JAX_MAGIC_V1 = b"SER2", b"SER1"
@@ -97,7 +98,9 @@ class Predictor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _answer(self, x, qmask, umask):
-        logp = self.spec.extract_logp(self.model(x, qmask, umask))
+        with profiling.annotate("ser#forward"):
+            out = self.model(x, qmask, umask)
+        logp = self.spec.extract_logp(out)
         labels = self.spec.grid(logp.argmax(-1), *umask.shape)
         self.n_requests += 1
         return logp, labels
@@ -112,7 +115,7 @@ class Predictor:
         (``ModelSpec.logp_layout``; time-major for MARN_AT and MARN_ATV),
         log-probabilities or, for the models that emit them,
         probabilities."""
-        with torch.inference_mode():
+        with profiling.annotate("ser#request"), torch.inference_mode():
             return self._answer(*(self._tensor(a) for a in (x, qmask, umask)))
 
     def batch_inputs(self, batch, dtype=torch.float32):
@@ -129,22 +132,23 @@ class Predictor:
         computes in f32 and returns f32 features, so x, the text features
         joined with them, is f32 there, as the JAX package's concatenation
         promotes it."""
-        textf = self._tensor(self.spec.text_features(batch)).to(dtype)
-        if self.frontend is not None and "wav" in batch:
-            wav_len = batch.get("wav_len")
-            acouf = self.frontend(
-                self._tensor(batch["wav"]).to(dtype).float(),
-                None if wav_len is None else self._tensor(wav_len, torch.int32))
-        else:
-            acouf = self._tensor(batch["acouf"]).to(dtype)
-        return (self.spec.join_inputs(textf, acouf),
-                self._tensor(batch["qmask"]).to(dtype),
-                self._tensor(batch["umask"]).to(dtype))
+        with profiling.annotate("ser#inputs"):
+            textf = self._tensor(self.spec.text_features(batch)).to(dtype)
+            if self.frontend is not None and "wav" in batch:
+                wav_len = batch.get("wav_len")
+                acouf = self.frontend(
+                    self._tensor(batch["wav"]).to(dtype).float(),
+                    None if wav_len is None else self._tensor(wav_len, torch.int32))
+            else:
+                acouf = self._tensor(batch["acouf"]).to(dtype)
+            return (self.spec.join_inputs(textf, acouf),
+                    self._tensor(batch["qmask"]).to(dtype),
+                    self._tensor(batch["umask"]).to(dtype))
 
     def predict_batch(self, batch):
         """One collated batch, as ``batch_inputs`` reads it. Returns what
         ``predict`` returns."""
-        with torch.inference_mode():
+        with profiling.annotate("ser#request"), torch.inference_mode():
             return self._answer(*self.batch_inputs(batch))
 
 

@@ -170,38 +170,41 @@ class ModelTrainer:
         the device. Gradients are cleared to None first and stay in ``.grad``
         after the step; a parameter the forward never touches has none, and
         Adam skips it."""
-        self.model.train()
-        spec = self.predictor.spec
-        with torch.no_grad():  # the front end's features take no gradient
-            x, qmask, umask = self.predictor.batch_inputs(batch, self.compute_dtype)
-        # labels and mask in the order of the model's rows (JAX _flat_targets)
-        labels = spec.rows(torch.as_tensor(batch["label"], device=self.device))
-        self.optimizer.zero_grad(set_to_none=True)
-        out = self._forward(x, qmask, umask)
-        profiling.check_finite("the forward's outputs",
-                               *(out if isinstance(out, tuple) else (out,)))
-        logp = spec.extract_logp(out)
-        # the global batch's mask sum under data parallelism
-        denominator = (float(np.sum(batch["umask_global"]))
-                       if "umask_global" in batch else None)
-        # MARN1_newz and BiLSTM have 6 outputs whatever n_classes says; only
-        # where the widths differ does a label past the outputs add 0, as in
-        # the JAX package (ROADMAP §C), and elsewhere it raises. The mask is
-        # the batch's f32 one, as in the JAX step
-        loss = masked_loss(logp, labels, spec.rows(umask.float()), kind=self.loss_kind,
-                           outside_adds_zero=logp.shape[-1] != self.n_classes,
-                           denominator=denominator)
-        if self.infonce > 0 and spec.feature_outputs:
-            loss = loss + self.infonce * self.infonce_term(out, self.world > 1, self.dp_group)
-        profiling.check_finite("the loss", loss)
-        profiling.backward(loss)
-        loss = loss.detach()
-        if self.world > 1:
-            (loss,) = parallel.all_reduce_grads(self.model.parameters(), loss,
-                                                group=self.dp_group)
-        set_lr(self.optimizer, lr)
-        self.optimizer.step()
-        return loss
+        with profiling.annotate("ser#train.step"):
+            self.model.train()
+            spec = self.predictor.spec
+            with torch.no_grad():  # the front end's features take no gradient
+                x, qmask, umask = self.predictor.batch_inputs(batch, self.compute_dtype)
+            # labels and mask in the order of the model's rows (JAX _flat_targets)
+            labels = spec.rows(torch.as_tensor(batch["label"], device=self.device))
+            self.optimizer.zero_grad(set_to_none=True)
+            with profiling.annotate("ser#forward"):
+                out = self._forward(x, qmask, umask)
+            profiling.check_finite("the forward's outputs",
+                                   *(out if isinstance(out, tuple) else (out,)))
+            logp = spec.extract_logp(out)
+            # the global batch's mask sum under data parallelism
+            denominator = (float(np.sum(batch["umask_global"]))
+                           if "umask_global" in batch else None)
+            # MARN1_newz and BiLSTM have 6 outputs whatever n_classes says; only
+            # where the widths differ does a label past the outputs add 0, as in
+            # the JAX package (ROADMAP §C), and elsewhere it raises. The mask is
+            # the batch's f32 one, as in the JAX step
+            loss = masked_loss(logp, labels, spec.rows(umask.float()), kind=self.loss_kind,
+                               outside_adds_zero=logp.shape[-1] != self.n_classes,
+                               denominator=denominator)
+            if self.infonce > 0 and spec.feature_outputs:
+                loss = loss + self.infonce * self.infonce_term(out, self.world > 1, self.dp_group)
+            profiling.check_finite("the loss", loss)
+            with profiling.annotate("ser#backward"):
+                profiling.backward(loss)
+            loss = loss.detach()
+            if self.world > 1:
+                (loss,) = parallel.all_reduce_grads(self.model.parameters(), loss,
+                                                    group=self.dp_group)
+            set_lr(self.optimizer, lr)
+            self.optimizer.step()
+            return loss
 
     def _forward(self, x, qmask, umask):
         """The train forward. Under ``tp`` the model runs on the whole

@@ -2,8 +2,9 @@
 
 - ``trace(logdir)``: a ``torch.profiler`` trace of everything run inside,
   written to ``logdir`` for TensorBoard or Perfetto;
-- ``annotate(name)``: a named region in such a trace (``record_function``);
-- ``StepTimer``: wall-clock time a named phase, on the host's clock;
+- ``annotate(name)``: one of the program's spans (``SPANS``), a
+  ``record_function`` range on the profiler's clock while a profiler is
+  collecting, and a shared no-op context otherwise;
 - ``enable_nan_checks()``: ``--debug_nans``. The first NaN or inf in a
   train step's forward outputs or loss raises ``FloatingPointError`` (the
   type ``jax_debug_nans`` raises), and autograd's anomaly mode finds one in
@@ -15,11 +16,24 @@
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 
 _NAN_CHECKS = False
+
+# The program's spans, each at a layer boundary of a train step or a scoring
+# request, once a step or request. On the card the profiler also records a
+# device-side annotation under each span's name; a name with ``#`` marks it
+# as an annotation and not a kernel, as PyTorch's own ``Optimizer.step#...``.
+SPANS = (
+    "ser#train.step",   # ModelTrainer._train_step_impl, the whole step
+    "ser#request",      # Predictor.predict and predict_batch
+    "ser#inputs",       # Predictor.batch_inputs: the text mean, the copies
+    "ser#forward",      # the model's call in a train step or a request
+    "ser#recurrence",   # the bidirectional loop, or onlysp's eval kernel
+    "ser#backward",     # autograd's backward of a train step
+)
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -35,7 +49,12 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    """A named region that shows in profiler traces."""
+    """The span ``name`` (one of ``SPANS``): a ``record_function`` range
+    while a ``torch.profiler.profile`` is open, else one shared
+    ``nullcontext``, which costs no torch op. The profiler's own flag
+    decides; nothing else turns the spans on."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
 
 
@@ -71,25 +90,3 @@ def backward(loss: torch.Tensor) -> None:
             raise FloatingPointError(f"{e} (--debug_nans)") from e
         raise
 
-
-class StepTimer:
-    """Wall-clock time a named phase, on the host's clock."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def time(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> dict:
-        return {name: {"total_s": round(self.totals[name], 4), "count": self.counts[name],
-                       "mean_ms": round(1e3 * self.totals[name] / self.counts[name], 3)}
-                for name in self.totals}

@@ -352,14 +352,11 @@ def test_train_cli_takes_the_three_flags(tmp_path, capsys, monkeypatch):
 
 
 def test_profiling_trace_annotate_and_step_timer(tmp_path):
-    """``utils.profiling``'s other helpers, as the JAX module's: a trace of
-    an annotated region written under its directory, and the step timer's
-    summary."""
-    timer = profiling.StepTimer()
+    """``utils/profiling.py``'s trace, as the JAX module's: a trace of an
+    annotated region written under its directory, the span in it."""
     with profiling.trace(str(tmp_path / "trace")):
         for _ in range(2):
-            with timer.time("matmul"), profiling.annotate("matmul"):
+            with profiling.annotate("ser#forward"):
                 torch.ones(8, 8) @ torch.ones(8, 8)
-    assert list((tmp_path / "trace").iterdir())
-    summary = timer.summary()
-    assert summary["matmul"]["count"] == 2 and summary["matmul"]["total_s"] >= 0
+    (written,) = (tmp_path / "trace").iterdir()
+    assert written.read_text().count('"ser#forward"') >= 2
