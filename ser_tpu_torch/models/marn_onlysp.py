@@ -133,6 +133,8 @@ class MARN1OnlySP(nn.Module):
     d_m = 100
     dropout_rate = 0.5  # h_s, h_l, h_a in the recurrence
     attn_dropout = 0.2  # the per-step rank-1 attention
+    # the train forward makes no host sync: a CUDA graph can hold the step
+    train_graph_safe = True
 
     def __init__(self, n_classes: int = 6, *, generator: torch.Generator,
                  encoder_attention: str = "mha"):

@@ -476,6 +476,8 @@ class _Variant(nn.Module):
     dropout_rate = 0.5  # the cells' h states, where the reference has them
     attn_dropout = 0.2  # the per-step rank-1 attention
     rank1 = True  # the cells' consts end with the rank-1 wq, wk
+    # the train forward makes no host sync: a CUDA graph can hold the step
+    train_graph_safe = True
 
     def __init__(self, n_classes: int):
         super().__init__()

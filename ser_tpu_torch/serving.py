@@ -133,17 +133,22 @@ class Predictor:
         joined with them, is f32 there, as the JAX package's concatenation
         promotes it."""
         with profiling.annotate("ser#inputs"):
-            textf = self._tensor(self.spec.text_features(batch)).to(dtype)
-            if self.frontend is not None and "wav" in batch:
-                wav_len = batch.get("wav_len")
-                acouf = self.frontend(
-                    self._tensor(batch["wav"]).to(dtype).float(),
-                    None if wav_len is None else self._tensor(wav_len, torch.int32))
-            else:
-                acouf = self._tensor(batch["acouf"]).to(dtype)
-            return (self.spec.join_inputs(textf, acouf),
-                    self._tensor(batch["qmask"]).to(dtype),
-                    self._tensor(batch["umask"]).to(dtype))
+            return self.device_inputs(batch, dtype)
+
+    def device_inputs(self, batch, dtype=torch.float32):
+        """``batch_inputs`` outside its span, for a caller that holds
+        ``ser#inputs`` itself."""
+        textf = self._tensor(self.spec.text_features(batch)).to(dtype)
+        if self.frontend is not None and "wav" in batch:
+            wav_len = batch.get("wav_len")
+            acouf = self.frontend(
+                self._tensor(batch["wav"]).to(dtype).float(),
+                None if wav_len is None else self._tensor(wav_len, torch.int32))
+        else:
+            acouf = self._tensor(batch["acouf"]).to(dtype)
+        return (self.spec.join_inputs(textf, acouf),
+                self._tensor(batch["qmask"]).to(dtype),
+                self._tensor(batch["umask"]).to(dtype))
 
     def predict_batch(self, batch):
         """One collated batch, as ``batch_inputs`` reads it. Returns what

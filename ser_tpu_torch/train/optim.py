@@ -75,17 +75,29 @@ class Adam(torch.optim.Adam):
 
 
 def torch_adam(params, lr: float = 1e-3, weight_decay: float = 2e-5,
-               betas=(0.9, 0.999), eps: float = 1e-8, tp_group=None) -> Adam:
+               betas=(0.9, 0.999), eps: float = 1e-8, tp_group=None,
+               capturable: bool = False) -> Adam:
     """Adam with coupled weight decay; the trainer sets the learning rate of
     each epoch from ``step_lr``. ``tp_group``: the tp group whose processes
-    hold the other shards of the parameters."""
+    hold the other shards of the parameters. ``capturable``: torch's form
+    that a CUDA graph can hold (step counts on the device), with the
+    learning rate a one-element tensor on the parameters' device, which
+    ``set_lr`` writes in place, so a captured step reads each epoch's."""
+    params = list(params)
+    lr = float(lr)
+    if capturable:
+        lr = torch.tensor(lr, device=params[0].device)
     return Adam(params, tp_group=tp_group, lr=lr, betas=betas, eps=eps,
-                weight_decay=weight_decay)
+                weight_decay=weight_decay, capturable=capturable)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate to ``lr``: a tensor one in place."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def step_lr(base_lr: float, gamma: float, step_size: int):

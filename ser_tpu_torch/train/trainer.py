@@ -54,11 +54,20 @@
   writes them.
 
 The model lives on one device (``cuda`` unless the caller asks for the CPU).
-A train step is eager PyTorch: the forward with every dropout drawn from the
-trainer's generator on that device, the masked loss (labels and mask in the
-order of the model's rows, ``ModelSpec.rows``), backward, and the Adam
-update. On the card the per-step rank-1 attention of MARN1_onlysp and the
-six variants runs as its CUDA kernel, forward and backward. Eval runs the
+A train step is the forward with every dropout drawn from the trainer's
+generator on that device, the masked loss (labels and mask in the order of
+the model's rows, ``ModelSpec.rows``), backward, and the Adam update. On the
+card the per-step rank-1 attention of MARN1_onlysp and the six variants runs
+as its CUDA kernel, forward and backward. Where ``step_graph.engages`` holds
+(the card, one process, f32, no NaN checks, no InfoNCE, the encoders' MHA,
+a model marked ``train_graph_safe``: MARN1_onlysp and the variants) the
+whole step is a CUDA graph of its key, shape and dropout rates
+(``train/step_graph.py``): the batch is copied into the graph's static
+inputs, the graph replayed, and its loss cloned; a key's first step runs
+eagerly, then is captured. Adam is then ``capturable``, with its learning
+rate a tensor on the card that ``set_lr`` writes in place. The graphs are
+dropped when the optimizer is replaced or loads a state, and when a train
+state is loaded. Every other case runs the step eagerly. Eval runs the
 model in eval mode through the same ``Predictor`` and loop as ``python -m
 ser_tpu_torch.predict``, so on the card MARN1_onlysp launches the recurrence
 kernel once a batch.
@@ -79,6 +88,7 @@ from ser_tpu_torch.serving import Predictor
 from ser_tpu_torch.train import checkpoint as ckpt
 from ser_tpu_torch.train.losses import info_nce, masked_loss
 from ser_tpu_torch.train.optim import set_lr, step_lr, torch_adam
+from ser_tpu_torch.train.step_graph import StepGraphs, engages, graph_key
 from ser_tpu_torch.utils import profiling
 
 
@@ -157,13 +167,26 @@ class ModelTrainer:
         print(time.strftime("%m-%d %H:%M:%S")
               + " Model para number = %.2f" % (n_params / 1024 / 1024))
         self.weight_decay = weight_decay
+        # the steps' CUDA graphs, used where engages() holds at construction
+        # and at each step (the NaN checks can be turned on in between)
+        self.graphs = StepGraphs(self.device, self.generator)
+        self.graphed = engages(self.device, self._layout()[0], self.compute_dtype,
+                               self.infonce, encoder_attention, self.model)
         self.optimizer = self._adam(lr)
         self.lr_at = step_lr(lr, lr_decay, test_step)
         self.history = {}  # filled by load_train_state
 
     def _adam(self, lr):
-        return torch_adam(self.model.parameters(), lr, self.weight_decay,
-                          tp_group=None if self.grid is None else self.grid.tp_group)
+        """A new optimizer (capturable where the steps are graphed); the
+        graphs, which captured the old one, are dropped, and so are they
+        whenever it loads a state."""
+        self.graphs.clear()
+        optimizer = torch_adam(self.model.parameters(), lr, self.weight_decay,
+                               tp_group=None if self.grid is None else self.grid.tp_group,
+                               capturable=self.graphed)
+        graphs = self.graphs  # not self: the hook keeps no trainer alive
+        optimizer.register_load_state_dict_post_hook(lambda _: graphs.clear())
+        return optimizer
 
     def _train_step_impl(self, batch, lr: float) -> torch.Tensor:
         """One optimizer step on a collated numpy batch; returns the loss on
@@ -172,39 +195,70 @@ class ModelTrainer:
         Adam skips it."""
         with profiling.annotate("ser#train.step"):
             self.model.train()
-            spec = self.predictor.spec
+            if (self.graphed and not profiling.nan_checks_enabled()
+                    and "umask_global" not in batch):
+                return self._graph_step(batch, lr)
             with torch.no_grad():  # the front end's features take no gradient
                 x, qmask, umask = self.predictor.batch_inputs(batch, self.compute_dtype)
             # labels and mask in the order of the model's rows (JAX _flat_targets)
-            labels = spec.rows(torch.as_tensor(batch["label"], device=self.device))
-            self.optimizer.zero_grad(set_to_none=True)
-            with profiling.annotate("ser#forward"):
-                out = self._forward(x, qmask, umask)
-            profiling.check_finite("the forward's outputs",
-                                   *(out if isinstance(out, tuple) else (out,)))
-            logp = spec.extract_logp(out)
+            labels = self.predictor.spec.rows(torch.as_tensor(batch["label"], device=self.device))
             # the global batch's mask sum under data parallelism
             denominator = (float(np.sum(batch["umask_global"]))
                            if "umask_global" in batch else None)
-            # MARN1_newz and BiLSTM have 6 outputs whatever n_classes says; only
-            # where the widths differ does a label past the outputs add 0, as in
-            # the JAX package (ROADMAP §C), and elsewhere it raises. The mask is
-            # the batch's f32 one, as in the JAX step
-            loss = masked_loss(logp, labels, spec.rows(umask.float()), kind=self.loss_kind,
-                               outside_adds_zero=logp.shape[-1] != self.n_classes,
-                               denominator=denominator)
-            if self.infonce > 0 and spec.feature_outputs:
-                loss = loss + self.infonce * self.infonce_term(out, self.world > 1, self.dp_group)
-            profiling.check_finite("the loss", loss)
-            with profiling.annotate("ser#backward"):
-                profiling.backward(loss)
-            loss = loss.detach()
-            if self.world > 1:
-                (loss,) = parallel.all_reduce_grads(self.model.parameters(), loss,
-                                                    group=self.dp_group)
+            loss = self._loss_and_grads(x, qmask, umask, labels, denominator)
             set_lr(self.optimizer, lr)
             self.optimizer.step()
             return loss
+
+    def _graph_step(self, batch, lr: float) -> torch.Tensor:
+        """The step as its key's CUDA graph: the batch copied into the static
+        inputs (one ``copy_`` each, inside ``ser#inputs``), then a replay, or
+        at the key's first sight an eager step and the capture."""
+        with profiling.annotate("ser#inputs"), torch.no_grad():
+            x, qmask, umask = self.predictor.device_inputs(batch, self.compute_dtype)
+            fresh = dict(x=x, qmask=qmask, umask=umask, label=torch.as_tensor(batch["label"]))
+            static = self.graphs.inputs(fresh)
+            for name, t in fresh.items():
+                static[name].copy_(t)
+        set_lr(self.optimizer, lr)  # the lr tensor, outside the graph
+
+        def run():
+            loss = self._loss_and_grads(static["x"], static["qmask"], static["umask"],
+                                        self.predictor.spec.rows(static["label"]))
+            self.optimizer.step()
+            return loss
+
+        return self.graphs.step(graph_key(x.shape, qmask.shape[-1], self.model),
+                                list(self.model.parameters()), run)
+
+    def _loss_and_grads(self, x, qmask, umask, labels, denominator=None) -> torch.Tensor:
+        """The forward, the masked loss (with ``denominator`` in place of the
+        mask's sum) and the backward into freshly cleared ``.grad``, summed
+        over the dp processes; returns the loss, detached."""
+        spec = self.predictor.spec
+        self.optimizer.zero_grad(set_to_none=True)
+        with profiling.annotate("ser#forward"):
+            out = self._forward(x, qmask, umask)
+        profiling.check_finite("the forward's outputs",
+                               *(out if isinstance(out, tuple) else (out,)))
+        logp = spec.extract_logp(out)
+        # MARN1_newz and BiLSTM have 6 outputs whatever n_classes says; only
+        # where the widths differ does a label past the outputs add 0, as in
+        # the JAX package (ROADMAP §C), and elsewhere it raises. The mask is
+        # the batch's f32 one, as in the JAX step
+        loss = masked_loss(logp, labels, spec.rows(umask.float()), kind=self.loss_kind,
+                           outside_adds_zero=logp.shape[-1] != self.n_classes,
+                           denominator=denominator)
+        if self.infonce > 0 and spec.feature_outputs:
+            loss = loss + self.infonce * self.infonce_term(out, self.world > 1, self.dp_group)
+        profiling.check_finite("the loss", loss)
+        with profiling.annotate("ser#backward"):
+            profiling.backward(loss)
+        loss = loss.detach()
+        if self.world > 1:
+            (loss,) = parallel.all_reduce_grads(self.model.parameters(), loss,
+                                                group=self.dp_group)
+        return loss
 
     def _forward(self, x, qmask, umask):
         """The train forward. Under ``tp`` the model runs on the whole
@@ -388,6 +442,7 @@ class ModelTrainer:
         state = extra["generator"]
         self.generator.set_state(torch.from_numpy(state[self.rank] if state.ndim == 2
                                                   else state))
+        self.graphs.clear()  # what they captured was restored under them
         self.history = {k[len("history/"):]: v.tolist() for k, v in extra.items()
                         if k.startswith("history/")}
         return int(extra["epoch"])

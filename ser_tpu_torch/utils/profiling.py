@@ -32,6 +32,8 @@ SPANS = (
     "ser#forward",      # the model's call in a train step or a request
     "ser#recurrence",   # the bidirectional loop, or onlysp's eval kernel
     "ser#backward",     # autograd's backward of a train step
+    "ser#graph.capture",  # the capture of a train step's CUDA graph
+    "ser#graph.replay",   # the replay of a train step's CUDA graph
 )
 _OFF = contextlib.nullcontext()
 

@@ -21,6 +21,14 @@ launches the MFCC kernel once. MARN1_onlysp under each zoo
 ``--encoder_attention`` kind (a request, the recurrence kernel once, with the
 op's weights drawn large enough to move the log-probs past the tolerance),
 and a muse step with ``--infonce`` (the train contract, 2T rank-1 launches).
+The train step as a CUDA graph (``train/step_graph.py``), dropout off unless
+said: onlysp and the eight ``fused_directions`` variants at [110, 80], [109,
+40], [110, 80] (two captures and a replay) against an eager trainer with the
+same Adam, each step's loss at rtol 1e-5 and gradients within the train
+contract; each returned loss its own; replays drawing fresh ``Dropout`` and
+rank-1 masks at their rates (6 binomial sigmas); a reload of the weights and
+the optimizer's first state, and a resume of a train state, continuing as
+eager steps do.
 """
 
 import numpy as np
@@ -869,3 +877,173 @@ def test_dp_one_nccl_rank_is_the_plain_step(cuda, monkeypatch):
             assert torch.equal(p, q)
     finally:
         torch.distributed.destroy_process_group()
+
+
+# the train step as a CUDA graph (train/step_graph.py)
+
+GRAPHED = ("MARN1_onlysp",) + VARIANTS + ("MARN1_mf", "MARN1_la")
+GRAPH_SHAPES = ((110, 80), (109, 40), (110, 80))  # eager, eager, a replay
+
+
+def _rank1_per_step(name, T):
+    """Rank-1 launches of a train step: T forward and T backward; nsps and
+    no_en leave the last z out of every output, so it has no backward; mf
+    and la run none."""
+    if name in ("MARN1_mf", "MARN1_la"):
+        return 0
+    return 2 * T - (name in ("MARN1_nsps", "MARN1_no_en"))
+
+
+def _graphed_and_eager(name):
+    """Two trainers of ``name`` from one init with every dropout rate at 0:
+    one whose steps are graphs, and one with the same (capturable) Adam
+    whose steps are eager."""
+    graphed, eager = ModelTrainer(model=name, seed=3), ModelTrainer(model=name, seed=3)
+    assert graphed.graphed and eager.optimizer.param_groups[0]["capturable"]
+    eager.graphed = False
+    _randomize_constants([graphed.model, eager.model])
+    for t in (graphed, eager):
+        _no_dropout(t.model)
+    return graphed, eager
+
+
+def _grads_within_contract(got, want):
+    """Every gradient of ``got`` within 1e-3 of its tensor's largest in
+    ``want`` plus 1e-6 of the step's largest, the same dead set (None)."""
+    want = dict(want.model.named_parameters())
+    top = max(p.grad.abs().max().item() for p in want.values() if p.grad is not None)
+    dead = 0
+    for name, q in got.model.named_parameters():
+        p = want[name]
+        assert (p.grad is None) == (q.grad is None), name
+        if p.grad is None:
+            dead += 1
+            continue
+        tol = 1e-3 * p.grad.abs().max().item() + 1e-6 * top
+        assert (q.grad - p.grad).abs().max().item() <= tol, name
+    return dead
+
+
+@pytest.mark.parametrize("name", GRAPHED)
+def test_train_graph_steps_match_eager_steps(cuda, name, monkeypatch):
+    """Dropout off, [110, 80], [109, 40], [110, 80]: the first two steps
+    capture their graphs, the third replays the first one. Each step's loss
+    (read after all three, so each is its own) at rtol 1e-5 and its
+    gradients within the train contract of the eager trainer's, dead
+    parameters None in both; a replay counts the rank-1 launches its graph
+    holds, as an eager step does."""
+    from ser_tpu_torch.train import step_graph
+
+    graphed, eager = _graphed_and_eager(name)
+    replays = []
+    replay = step_graph.StepGraph.replay
+    monkeypatch.setattr(step_graph.StepGraph, "replay",
+                        lambda self: replays.append(self) or replay(self))
+    losses = {"graphed": [], "eager": []}
+    for i, (L, B) in enumerate(GRAPH_SHAPES):
+        batch = synthetic_batch(L=L, B=B, seed=10 + i, min_len=L // 3)
+        for side, t in (("graphed", graphed), ("eager", eager)):
+            before = LAUNCHES[trank1.NAME]
+            losses[side].append(t._train_step_impl(batch, 1e-3))
+            torch.cuda.synchronize()
+            assert LAUNCHES[trank1.NAME] - before == _rank1_per_step(name, L), (side, i)
+        assert len(replays) == (i == 2)
+        dead = _grads_within_contract(graphed, eager)
+        assert dead > 0
+    assert len(graphed.graphs.graphs) == 2
+    np.testing.assert_allclose([l.item() for l in losses["graphed"]],
+                               [l.item() for l in losses["eager"]], rtol=1e-5)
+    for p, q in zip(graphed.model.parameters(), eager.model.parameters()):
+        assert (p - q).abs().max().item() <= 2.05e-3  # the Adam update within 2.05 lr
+
+
+def test_train_graph_losses_are_each_steps_own(cuda):
+    """Four steps of one key with dropout on (one eager, three replays):
+    each returned loss still holds what it read when its step ended."""
+    t = ModelTrainer(seed=3)
+    batch = synthetic_batch(L=40, B=16, seed=1, min_len=10)
+    losses, read = [], []
+    for _ in range(4):
+        losses.append(t._train_step_impl(batch, 1e-3))
+        read.append(losses[-1].item())
+    assert [l.item() for l in losses] == read
+    assert len(set(read)) == 4
+
+
+def test_train_graph_replays_draw_fresh_masks_at_their_rates(cuda, monkeypatch):
+    """Each replay draws new masks from the trainer's generator: the
+    ``dropout_rec`` output's kept share (where its input is not 0) and the
+    rank-1 mask of each replay's seed (``keep_mask``, at steps 0 and 17)
+    within 6 binomial sigmas of 1 - p, and no two replays alike."""
+    from ser_tpu_torch.models import marn_onlysp
+
+    t = ModelTrainer(seed=3)
+    seen = {}
+    t.model.dropout_rec.register_forward_hook(
+        lambda m, args, out: seen.update(drop=(args[0], out)))
+    bind = marn_onlysp.rank1_bind
+    monkeypatch.setattr(marn_onlysp, "rank1_bind", lambda wq, wk, seed, p: (
+        seen.update(seed=seed, p=p) or bind(wq, wk, seed, p)))
+    L, B = 32, 16
+    batch = synthetic_batch(L=L, B=B, seed=1, min_len=L)
+    t._train_step_impl(batch, 1e-3)  # eager, then the capture: seen holds its tensors
+    (x, out), seed = seen["drop"], seen["seed"]
+    assert seen["p"] == t.model.attn_dropout
+    masks, seeds = [], []
+    for _ in range(3):
+        t._train_step_impl(batch, 1e-3)
+        masks.append((out != 0)[x != 0])
+        seeds.append(seed.clone())
+    p = t.model.dropout_rec.p
+    for mask in masks:
+        sigma = (p * (1 - p) / mask.numel()) ** 0.5
+        assert abs(mask.float().mean().item() - (1 - p)) <= 6 * sigma
+    assert not torch.equal(masks[0], masks[1]) and not torch.equal(masks[1], masks[2])
+    assert len({s.item() for s in seeds}) == 3
+    pa = t.model.attn_dropout
+    for s in seeds:
+        for step in (0, 17):
+            keep = trank1.keep_mask(s, step, B, pa)
+            sigma = (pa * (1 - pa) / keep.numel()) ** 0.5
+            assert abs(keep.float().mean().item() - (1 - pa)) <= 6 * sigma
+
+
+def test_train_graph_after_reloads_matches_eager(cuda):
+    """The benchmark's check on a warmed trainer: the model's weights back
+    (``load_state_dict``, in place, which keeps the graphs) and the
+    optimizer's first state (which drops them); then a first sight and a
+    replay match the eager trainer's first two steps."""
+    import copy
+
+    graphed, eager = _graphed_and_eager("MARN1_onlysp")
+    weights = {k: v.clone() for k, v in graphed.model.state_dict().items()}
+    start = copy.deepcopy(graphed.optimizer.state_dict())
+    batch = synthetic_batch(L=48, B=16, seed=4, min_len=12)
+    for _ in range(3):
+        graphed._train_step_impl(batch, 1e-3)
+    graphed.model.load_state_dict(weights)
+    assert len(graphed.graphs.graphs) == 1
+    graphed.optimizer.load_state_dict(start)
+    assert not graphed.graphs.graphs
+    for _ in range(2):
+        got, want = (t._train_step_impl(batch, 1e-3).item() for t in (graphed, eager))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        _grads_within_contract(graphed, eager)
+    for p, q in zip(graphed.model.parameters(), eager.model.parameters()):
+        assert (p - q).abs().max().item() <= 2.05e-3  # the Adam update within 2.05 lr
+
+
+def test_train_graph_resume_restores_the_dropout_stream(cuda, tmp_path):
+    """Dropout on: two replays after ``save_train_state``, then
+    ``load_train_state`` (which drops the graphs) and the same two steps
+    again, a first sight and a replay: the same losses, so the generator's
+    state, which every replay advances, was saved and restored."""
+    t = ModelTrainer(seed=3)
+    batch = synthetic_batch(L=40, B=16, seed=2, min_len=10)
+    t._train_step_impl(batch, 1e-3)
+    t.save_train_state(str(tmp_path / "s.npz"), 1)
+    first = [t._train_step_impl(batch, 1e-3).item() for _ in range(2)]
+    t.load_train_state(str(tmp_path / "s.npz"))
+    assert not t.graphs.graphs
+    again = [t._train_step_impl(batch, 1e-3).item() for _ in range(2)]
+    np.testing.assert_allclose(again, first, rtol=1e-5)

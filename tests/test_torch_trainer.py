@@ -17,6 +17,14 @@ packages.
   ``--save_state`` and ``--resume``; ``tests/test_torch_mixed_precision.py``,
   ``tests/test_torch_parallel.py`` and ``tests/test_torch_tp.py``
   ``--compute_dtype bf16``, ``--dp`` and ``--tp``).
+- The train step's CUDA graphs (``train/step_graph.py``) on what the CPU
+  can show: the rule that engages them refuses every case but one f32
+  process on the card with a marked model, the key follows each shape and
+  each dropout rate, the static inputs are views of one buffer, the graphs
+  are dropped whenever the optimizer, its state or the train state is
+  replaced and kept when the weights are loaded in place, and ``set_lr``
+  writes a tensor learning rate in place (``tests/test_torch_cuda.py``
+  holds the graphs on the card).
 """
 
 import numpy as np
@@ -29,8 +37,18 @@ from ser_tpu.train.trainer import ModelTrainer as JModelTrainer
 from ser_tpu_torch.data.loaders import PrefetchLoader, get_loaders
 from ser_tpu_torch.data.synthetic import generate_iemocap_pickles
 from ser_tpu_torch.train import __main__ as train_cli
+from ser_tpu_torch.models.dialogue_rnn import DialogueRNN
+from ser_tpu_torch.models.marn_newz import MARN1NewZ
+from ser_tpu_torch.models.marn_onlysp import MARN1OnlySP
+from ser_tpu_torch.models.marn_variants import MARN1LA, MARN1MF, MARN1NSPS, MARN1SP
+from ser_tpu_torch.models.registry import build_model
+from ser_tpu_torch.ops.init import generator
+from ser_tpu_torch.ops.layers import Dropout
 from ser_tpu_torch.train.checkpoint import save_parameters
+from ser_tpu_torch.train.optim import set_lr, torch_adam
+from ser_tpu_torch.train.step_graph import StepGraphs, dropout_rates, engages, graph_key
 from ser_tpu_torch.train.trainer import ModelTrainer
+from ser_tpu_torch.utils import profiling
 
 BATCH = 8
 
@@ -286,3 +304,113 @@ def test_cli_names_the_zoo_item_for_another_model(tmp_path):
     with pytest.raises(KeyError, match=r"unknown model 'MARN2'; available: .*'BiLSTM'"):
         train_cli.main(_cli_args(str(tmp_path), tmp_path / "exp", "--model", "MARN2"))
     assert not list(tmp_path.iterdir())
+
+
+# the train step's CUDA graphs, on the CPU
+
+GRAPHED = dict(device=torch.device("cuda"), processes=1, compute_dtype=torch.float32,
+               infonce=0.0, encoder_attention="mha")
+REFUSED = {"cpu": dict(device=torch.device("cpu")), "dp": dict(processes=2),
+           "tp": dict(processes=4), "bf16": dict(compute_dtype=torch.bfloat16),
+           "infonce": dict(infonce=0.1), "zoo_encoder": dict(encoder_attention="muse")}
+
+
+@pytest.mark.parametrize("marked", [MARN1OnlySP, MARN1SP, MARN1NSPS, MARN1MF, MARN1LA])
+def test_graph_engages_for_one_f32_process_on_the_card(marked):
+    assert engages(**GRAPHED, model=marked)
+
+
+@pytest.mark.parametrize("case", list(REFUSED) + ["debug_nans", "unmarked", "newz"])
+def test_graph_engagement_refuses(case):
+    model = {"unmarked": DialogueRNN, "newz": MARN1NewZ}.get(case, MARN1OnlySP)
+    was = profiling.nan_checks_enabled()
+    profiling.enable_nan_checks(case == "debug_nans")
+    try:
+        assert not engages(**{**GRAPHED, **REFUSED.get(case, {})}, model=model)
+    finally:
+        profiling.enable_nan_checks(was)
+
+
+def test_cpu_trainer_steps_eagerly_with_a_float_lr():
+    trainer = ModelTrainer(device="cpu", seed=1)
+    assert not trainer.graphed
+    assert not trainer.optimizer.param_groups[0]["capturable"]
+    assert isinstance(trainer.optimizer.param_groups[0]["lr"], float)
+
+
+def test_graph_key_follows_each_shape_and_each_dropout_rate():
+    model = build_model("MARN1_onlysp", generator(0), 6)
+    base = graph_key((110, 80, 1124), 2, model)
+    others = [graph_key(s, p, model) for s, p in (((109, 80, 1124), 2), ((110, 40, 1124), 2),
+                                                   ((110, 80, 1124), 9), ((110, 80, 1324), 2))]
+    assert base not in others and len(set(others)) == 4
+    rates = [(m, "p") for m in model.modules() if isinstance(m, Dropout)]
+    rates += [(model, "dropout_rate"), (model, "attn_dropout")]
+    assert len(rates) == len(dropout_rates(model)) > 2
+    for m, attr in rates:
+        old = getattr(m, attr)
+        setattr(m, attr, 0.0)
+        assert graph_key((110, 80, 1124), 2, model) != base, (m, attr)
+        setattr(m, attr, old)
+    assert graph_key((110, 80, 1124), 2, model) == base
+
+
+def test_graph_static_inputs_are_views_of_one_buffer_a_name():
+    graphs = StepGraphs(torch.device("cpu"), torch.Generator())
+    label = lambda B, L: torch.ones(B, L, dtype=torch.int32)  # noqa: E731
+    big = graphs.inputs({"x": torch.ones(110, 80, 3), "label": label(80, 110)})
+    graphs.graphs["planted"] = object()
+    small = graphs.inputs({"x": torch.ones(109, 40, 3), "label": label(40, 109)})
+    assert graphs.graphs  # a smaller shape reads the same buffers
+    for name in ("x", "label"):
+        assert small[name].data_ptr() == big[name].data_ptr() == graphs.buffers[name].data_ptr()
+    assert small["x"].shape == (109, 40, 3) and small["label"].dtype is torch.int32
+    graphs.pool = "planted"
+    graphs.inputs({"x": torch.ones(111, 80, 3)})
+    assert not graphs.graphs and graphs.buffers["x"].numel() == 111 * 80 * 3
+    assert graphs.pool is None  # a pool that no graph holds is not captured into again
+
+
+def test_graphs_dropped_when_optimizer_or_train_state_replaced_kept_on_weights(tmp_path, capsys):
+    trainer = ModelTrainer(device="cpu", seed=1)
+
+    def plant():
+        trainer.graphs.graphs[("planted",)] = object()
+
+    plant()
+    params = list(trainer.model.parameters())
+    trainer.model.load_state_dict({k: v + 1 for k, v in trainer.model.state_dict().items()})
+    assert trainer.graphs.graphs and all(p is q for p, q in zip(params, trainer.model.parameters()))
+    trainer.optimizer.load_state_dict(trainer.optimizer.state_dict())
+    assert not trainer.graphs.graphs
+    plant()
+    trainer.optimizer = trainer._adam(1e-3)
+    assert not trainer.graphs.graphs
+    plant()
+    trainer.save_parameters(str(tmp_path / "p.npz"))
+    trainer.load_parameters(str(tmp_path / "p.npz"))
+    assert not trainer.graphs.graphs
+    plant()
+    trainer.optimizer.load_state_dict(trainer.optimizer.state_dict())  # the new one's hook
+    assert not trainer.graphs.graphs
+    plant()
+    trainer.save_train_state(str(tmp_path / "s.npz"), 1)
+    assert trainer.graphs.graphs
+    trainer.load_train_state(str(tmp_path / "s.npz"))
+    assert not trainer.graphs.graphs
+
+
+def test_set_lr_writes_a_tensor_rate_in_place():
+    w = torch.nn.Parameter(torch.ones(3))
+    opt = torch_adam([w], 1e-3, capturable=True)
+    lr = opt.param_groups[0]["lr"]
+    assert torch.is_tensor(lr) and lr.item() == pytest.approx(1e-3)
+    set_lr(opt, 5e-4)
+    assert opt.param_groups[0]["lr"] is lr and lr.item() == pytest.approx(5e-4)
+    plain = torch_adam([w], 1e-3)
+    set_lr(plain, 5e-4)
+    assert plain.param_groups[0]["lr"] == 5e-4
+
+
+def test_graph_spans_are_program_spans():
+    assert {"ser#graph.capture", "ser#graph.replay"} <= set(profiling.SPANS)
