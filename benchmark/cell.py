@@ -8,6 +8,40 @@ the module that drives it (``benchmark/<driver>.py``); the limits of the
 cell's check are ``benchmark/limits/<workload>.json``; a per-layer metric is
 ``benchmark/metrics/<metric>.py``. A later cell adds files and entries and
 edits none of these.
+
+A configuration of any family the program's registry holds joins through
+its own files:
+
+- ``configs/<config>.json`` (the configuration's ``file``): ``model``, the
+  program's registry name; ``reference``, the module below; ``classes`` and
+  ``parties``; the widths that ``generate`` draws, ``text_views``,
+  ``text_width``, ``audio_width`` and, for a model that reads ``visuf``,
+  ``visual_width``; ``input_width``, the width of the reference's x;
+  ``dropout``, each rate of the program's model by the reference's groups;
+  ``precision``; and whatever else its ``config_checks`` read (MARN1's:
+  ``modality_width``, ``hidden``, ``encoder``, ``head``);
+- ``reference/<reference>.py``, plain PyTorch that imports nothing of the
+  program: ``param_table(n_classes)``, every parameter under the program's
+  state-dict name (``common.ParamTable``; the program loads it strictly);
+  ``forward(P, x, qmask, umask)``, log-probabilities ``[B*L, C]`` in the
+  rows' order of the program's output; ``inputs(batch, config)``, x in
+  float64 from a batch's tensors (MARN1's is ``common.marn1_inputs``, the
+  text views' mean, then the audio), which ``common.reference_input`` calls
+  for both drivers; ``SMOOTH_LEAVES``, the leaves between the loss and the
+  last ReLU; ``matmul_flops(L, B, train)``, what ``FlopCounterMode``
+  counts in ``forward`` (and in a train step's backward);
+  ``config_checks(config)``, ``(what, one side, the other)`` triples that
+  are equal where the file agrees with the reference;
+  ``dropout_group(name)``, the ``dropout`` key of a program module's rate
+  (``<module>`` for a ``Dropout``, ``<module>.dropout_rate`` or
+  ``<module>.attn_dropout`` for a float rate); ``ENCODERS``, optional, the
+  encoder layers that ``forward`` runs through ``common.encoder``, each
+  ``encoder.passes`` times (none without it); ``rank1_calls(L, train)``,
+  optional, for the rank-1 kernel's roofline;
+- a cell of it: its entry under ``workloads``, named ``<...>.train.<...>``
+  or ``<...>.score.<...>`` by its driver, in the ``workloads`` lists of its
+  metrics, and ``limits/<workload>.json``, a limit for each number that
+  its driver compares (``compare``).
 """
 
 from __future__ import annotations
@@ -98,7 +132,9 @@ class Readings:
     """What a per-layer reader reads. ``trace`` is the traced slice
     (``benchmark.trace.Trace``) and ``slice_shapes`` the [L, B] of each step
     or request in it; ``timed_shapes`` and ``timed_s`` are the untraced part
-    of the window. ``on_device``: whether the run's times are the card's."""
+    of the window. ``on_device``: whether the run's times are the card's.
+    ``reserved_peak_bytes``: ``torch.cuda.max_memory_reserved`` from the
+    window's opening to the end of the traced slice, None off the card."""
 
     trace: object = None
     slice_shapes: list = field(default_factory=list)
@@ -107,6 +143,7 @@ class Readings:
     reference: object = None
     config: dict = field(default_factory=dict)
     on_device: bool = False
+    reserved_peak_bytes: int | None = None
 
 
 @dataclass

@@ -26,7 +26,12 @@ trainer after the window, with every dropout rate at 0):
   an element whose gradient is within rounding of 0 moves either way: the
   worst leaf swings from seed to seed;
 - ``change_median_gap``: the median of those gaps over the leaves that the
-  reference moves, steady from seed to seed.
+  reference moves. About 6e-6 on most seeds (the program's Adam takes its
+  bias corrections in float32); on a few seeds up to 6.3e-4, where float32
+  puts ReLU inputs near 0 on the other side, Adam moves the elements whose
+  gradient is within rounding of 0 by about ``lr`` either way, and the
+  later steps' forwards flip more of them (a float32 reference does the
+  same).
 
 Score cells (every answer of the window against the reference's answer to
 its request):

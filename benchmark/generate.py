@@ -7,9 +7,12 @@ features that the run's seed draws; an epoch's batches are cut from
 shuffles that the length seed fixes too. So every seed does the same
 work. Each utterance has four RoBERTa views and an audio
 vector, N(0, 1), a speaker among the configuration's parties and a label
-among its classes. A batch is the program's collated numpy layout: r1..r4,
-acouf and qmask time-major ``[L, B, .]``, umask and label ``[B, L]``, padded
-with zeros to its own longest dialogue.
+among its classes, and, where the configuration gives ``visual_width``, a
+visual vector, N(0, 1), drawn after all of those (so a configuration
+without it draws what it drew before the key existed). A batch is the
+program's collated numpy layout: r1..r4, acouf, visuf (with a visual
+vector) and qmask time-major ``[L, B, .]``, umask and label ``[B, L]``,
+padded with zeros to its own longest dialogue.
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ def split_lengths(spec: dict) -> np.ndarray:
 @dataclass
 class Split:
     """Dialogues stored back to back: ``text [views, U, width]``, ``audio
-    [U, width]``, ``speaker [U]``, ``label [U]``; dialogue d spans
-    ``offsets[d]:offsets[d] + lengths[d]``."""
+    [U, width]``, ``speaker [U]``, ``label [U]``, ``visual [U, width]`` or
+    None; dialogue d spans ``offsets[d]:offsets[d] + lengths[d]``."""
 
     lengths: np.ndarray
     offsets: np.ndarray
@@ -70,6 +73,7 @@ class Split:
     speaker: np.ndarray
     label: np.ndarray
     parties: int
+    visual: np.ndarray | None = None
 
     @property
     def utterances(self) -> int:
@@ -85,8 +89,10 @@ def make_split(lengths, config: dict, rng: np.random.Generator) -> Split:
     audio = rng.standard_normal((U, config["audio_width"]), dtype=np.float32)
     speaker = rng.integers(0, config["parties"], size=U)
     label = rng.integers(0, config["classes"], size=U).astype(np.int32)
+    visual = (rng.standard_normal((U, config["visual_width"]), dtype=np.float32)
+              if "visual_width" in config else None)
     offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
-    return Split(lengths, offsets, text, audio, speaker, label, config["parties"])
+    return Split(lengths, offsets, text, audio, speaker, label, config["parties"], visual)
 
 
 def collate(split: Split, idx) -> dict:
@@ -98,6 +104,8 @@ def collate(split: Split, idx) -> dict:
     batch = {f"r{k + 1}": np.zeros((L, B, split.text.shape[2]), np.float32)
              for k in range(views)}
     batch["acouf"] = np.zeros((L, B, split.audio.shape[1]), np.float32)
+    if split.visual is not None:
+        batch["visuf"] = np.zeros((L, B, split.visual.shape[1]), np.float32)
     batch["qmask"] = np.zeros((L, B, split.parties), np.float32)
     batch["umask"] = np.zeros((B, L), np.float32)
     batch["label"] = np.zeros((B, L), np.int32)
@@ -106,6 +114,8 @@ def collate(split: Split, idx) -> dict:
         for k in range(views):
             batch[f"r{k + 1}"][:n, b] = split.text[k, s]
         batch["acouf"][:n, b] = split.audio[s]
+        if split.visual is not None:
+            batch["visuf"][:n, b] = split.visual[s]
         batch["qmask"][np.arange(n), b, split.speaker[s]] = 1.0
         batch["umask"][b, :n] = 1.0
         batch["label"][b, :n] = split.label[s]

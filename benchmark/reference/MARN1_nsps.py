@@ -23,6 +23,7 @@ from benchmark.reference import common as c
 
 H, D_R, D_M = 128, 1024, 100
 ENC = dict(n_head=8, d_k=40, d_v=40)  # EncoderLayer(100, 40, 8, 40, 40)
+ENCODERS = c.MARN1_ENCODERS  # the encoder layers, each applied `encoder.passes` times
 # the leaves between the loss and the last ReLU, whose gradient has no kink
 SMOOTH_LEAVES = ("nn_out.3.weight", "nn_out.3.bias")
 
@@ -50,6 +51,15 @@ def param_table(n_classes: int = 6) -> c.ParamTable:
     t.linear("nn_out.0", d_feat, 32)
     t.linear("nn_out.3", 32, n_classes)
     return t
+
+
+def config_checks(config: dict) -> list:
+    """The configuration file against this reference (``common.marn1_config_checks``)."""
+    return c.marn1_config_checks(config, param_table(config["classes"]), D_R, D_M, H, ENC)
+
+
+dropout_group = c.marn1_dropout_group
+inputs = c.marn1_inputs
 
 
 def _gather(P, cell, xcat, x_l, x_a, qmask):

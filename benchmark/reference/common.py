@@ -93,6 +93,63 @@ class ParamTable(dict):
             self.ones(f"{name}.{part}", (1, D))
 
 
+MARN1_ENCODERS = ("encoder_l", "encoder_a")
+
+
+def marn1_config_checks(config, params: ParamTable, D_R, D_M, H, ENC) -> list:
+    """A MARN1 configuration file against its reference, as ``(what, one
+    side, the other)`` triples whose sides must be equal: the file's widths
+    against the shapes of the reference's parameter table ``params`` and its
+    constants ``D_R`` (text), ``D_M`` (modality), ``H`` (hidden) and ``ENC``
+    (the encoder's arguments)."""
+    table = {n: shape for n, (shape, _, _) in params.items()}
+    modality, text = table["linear_in.weight"]
+    four_h, hidden = table["marn_cell_f.lsthm_l.U.weight"]
+    d_hidden, d_feat = table["nn_out.0.weight"]
+    enc = config["encoder"]
+    checks = [
+        ("linear_in's text and modality widths", (text, modality),
+         (config["text_width"], config["modality_width"])),
+        ("the reference's D_R and D_M", (text, modality), (D_R, D_M)),
+        ("encoder_a's input, the audio width", table["encoder_a.slf_attn.w_qs.weight"][1],
+         config["audio_width"]),
+        ("input_width, text and audio", config["input_width"],
+         config["text_width"] + config["audio_width"]),
+        ("the LSTHM's four gates", four_h, 4 * hidden),
+        ("the hidden width", hidden, config["hidden"]),
+        ("the reference's H", hidden, H),
+        ("the encoder's arguments", {k: enc[k] for k in ENC}, ENC),
+    ]
+    for side in MARN1_ENCODERS:
+        checks += [
+            (f"{side}'s q", table[f"{side}.slf_attn.w_qs.weight"],
+             (enc["n_head"] * enc["d_k"], enc["d_model"])),
+            (f"{side}'s v", table[f"{side}.slf_attn.w_vs.weight"],
+             (enc["n_head"] * enc["d_v"], enc["d_model"])),
+            (f"{side}'s FFN", table[f"{side}.pos_ffn.w_1.weight"],
+             (enc["d_inner"], enc["d_model"])),
+        ]
+    return checks + [
+        ("the head's widths", [d_feat, d_hidden, table["nn_out.3.weight"][0]], config["head"]),
+        ("the head's classes", config["head"][-1], config["classes"]),
+    ]
+
+
+def marn1_dropout_group(module: str) -> str:
+    """The MARN1 configuration's dropout key of a program module's rate
+    (the module's name, or ``<module>.dropout_rate`` or
+    ``<module>.attn_dropout`` for a float rate)."""
+    if "encoder_" in module:
+        return "encoder"
+    if "crossatt" in module:
+        return "sequence_attention"
+    if module.endswith("attn_dropout"):
+        return "rank1_attention"
+    if module.startswith(("nn_out.", "fc.")):
+        return "head"
+    return "recurrence"
+
+
 def linear(P, name, x, bias=True):
     return F.linear(x, P[f"{name}.weight"], P[f"{name}.bias"] if bias else None)
 
@@ -202,6 +259,21 @@ def text_mean(batch, key_prefix="r", views=4):
     for k in range(2, views + 1):
         out = out + batch[f"{key_prefix}{k}"]
     return out / views
+
+
+def marn1_inputs(batch, config):
+    """MARN1's input x ``[L, B, .]`` in float64: the mean of the text views,
+    then the audio."""
+    return torch.cat([text_mean({k: batch[k].double() for k in batch if k.startswith("r")},
+                                views=config["text_views"]),
+                      batch["acouf"].double()], -1)
+
+
+def reference_input(cell, batch):
+    """The reference's input x ``[L, B, .]`` of one batch (the tensors of
+    ``generate.collate``'s fields, on the reference's device), float64: the
+    cell's reference module's ``inputs(batch, config)``."""
+    return cell.reference.inputs(batch, cell.config)
 
 
 def masked_loss(logp, labels, umask):

@@ -83,12 +83,22 @@ class Context:
             self.torch.cuda.synchronize()
 
     def memory_peak(self, reset=False) -> int:
+        """The most memory allocated since the last reset; with ``reset``,
+        the allocated and the reserved peaks start again from now."""
         if not self.on_device:
             return 0
         peak = self.torch.cuda.max_memory_allocated(self.device)
         if reset:
             self.torch.cuda.reset_peak_memory_stats(self.device)
         return peak
+
+    def reserved_peak(self) -> int | None:
+        """The most memory the allocator held from the card since the last
+        reset: the allocated peak's blocks, its cache and the CUDA graphs'
+        private pools. None off the card."""
+        if not self.on_device:
+            return None
+        return self.torch.cuda.max_memory_reserved(self.device)
 
     def window_opens(self):
         self.host = [host_snapshot()]

@@ -27,6 +27,14 @@ from benchmark.train_epochs import sub_seed
 from benchmark.weights import make_weights
 
 
+def data(cell, seed: int) -> list[dict]:
+    """The run's pool of requests: the traffic's ``pool`` test splits of
+    the same lengths, in orders and with features that ``seed`` draws."""
+    tr = cell.traffic
+    rng = np.random.default_rng([int(seed), 1])
+    return generate.requests(generate.split_lengths(tr), cell.config, tr["pool"], rng)
+
+
 def reference_answers(torch, cell, weights, pool, device) -> dict:
     """pool index -> the reference's log-probabilities, float64 on the host."""
     params = {n: w.to(device, torch.float64) for n, w in weights.items()}
@@ -34,11 +42,8 @@ def reference_answers(torch, cell, weights, pool, device) -> dict:
     with torch.no_grad():
         for k, batch in enumerate(pool):
             b = {n: torch.as_tensor(v, device=device) for n, v in batch.items()}
-            x = torch.cat([common.text_mean({n: b[n].double() for n in b if n.startswith("r")},
-                                            views=cell.config["text_views"]),
-                           b["acouf"].double()], -1)
-            out[k] = cell.reference.forward(params, x, b["qmask"].double(),
-                                            b["umask"].double()).cpu().numpy()
+            out[k] = cell.reference.forward(params, common.reference_input(cell, b),
+                                            b["qmask"].double(), b["umask"].double()).cpu().numpy()
     return out
 
 
@@ -47,8 +52,7 @@ def run(cell, seed: int, seconds: float, trace: bool, ctx) -> Outcome:
     from ser_tpu_torch.serving import Predictor
 
     cfg, tr = cell.config, cell.traffic
-    rng = np.random.default_rng([int(seed), 1])
-    pool = generate.requests(generate.split_lengths(tr), cfg, tr["pool"], rng)
+    pool = data(cell, seed)
     ctx.phase("data")
     weights = make_weights(cell.reference.param_table(cfg["classes"]), sub_seed(seed, 2), device)
     predictor = Predictor(cfg["model"], state_dict=weights, device=device,
@@ -91,6 +95,7 @@ def run(cell, seed: int, seconds: float, trace: bool, ctx) -> Outcome:
         answers.extend((k, *a, pool[k]["umask"]) for k, a in zip(traced, got))
         readings.slice_shapes = [generate.shape_of(pool[k]) for k in traced]
     window_peak = ctx.memory_peak()
+    readings.reserved_peak_bytes = ctx.reserved_peak()
 
     del predictor
     gc.collect()

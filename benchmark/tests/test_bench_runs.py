@@ -28,6 +28,7 @@ def test_sound_run_is_correct(workload):
     result, _ = execute(cell, SEED, 0.2, 0, torch, "cpu")
     assert list(result) == KEYS
     assert result["correct"], result["compared"]
+    assert set(result["compared"]) == set(cell.limits)
     assert result["failed"] == 0 and result["attempted"] > 0
     assert set(result["metrics"]) == {m["name"] for m in cell.end_to_end}
 

@@ -1,11 +1,16 @@
 """The traffic generator: deterministic in the seed, the splits' counts
-kept, and the same work for every seed."""
+kept, the same work for every seed, and the same bytes as before a
+configuration could bring visual features."""
+
+import hashlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
-from benchmark import generate, train_epochs
+from benchmark import generate, score_requests, train_epochs
 from benchmark.cell import HERE, load_json
+from benchmark.tests.small import SMALL
 
 TRAIN = load_json(HERE / "traffic" / "iemocap-train-epochs.json")
 TEST = load_json(HERE / "traffic" / "iemocap-test-requests.json")
@@ -72,3 +77,59 @@ def test_every_seed_trains_the_same_shapes():
     shapes = [sorted(generate.shape_of(b) for epoch in train_epochs.data(Cell, s)[0]
                      for b in epoch) for s in (BIG, BIG + 1, 7)]
     assert shapes[0] == shapes[1] == shapes[2]
+
+
+# sha256 of the small traffic's train epochs, check batches and score pool
+# (every array's name, dtype, shape and bytes, in order), for each seed, as
+# the generator made them before a configuration could give
+# ``visual_width``: a configuration without it draws the same bytes
+PINNED = {
+    2 ** 31 + 4099: ("fadeca7baab8e5b78db919e73da119e27fbe2fcd2fda48c369bd2c23e37079cf",
+                     "1ea8fc25e0c836afdc8170619519d8a8d3ff5f8e36a2897df361b4e854dd8d10",
+                     "73caa1707754747e4444c6dac0a7b6599555e6e3679cd15e1839adfe1cc2e23d"),
+    3_000_000_019: ("fc34529daf70a716e912f5b2ad55517e678d8ad5b3f43fe691a5df9c39b05c07",
+                    "37ad164988ac40191ba0d8d07df0a287c62bc047570b25eb11bcf0aeeaacad7b",
+                    "9f6a4ef9c95028b1d54b9639e92fb368c7120c80f6a97b4d1959ab0e5300f64d"),
+}
+
+
+def digest(batches) -> str:
+    h = hashlib.sha256()
+    for batch in batches:
+        for name, a in batch.items():
+            h.update(f"{name}{a.dtype}{a.shape}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("config", ["MARN1_onlysp.iemocap", "MARN1_nsps.iemocap"])
+@pytest.mark.parametrize("seed", PINNED)
+def test_data_is_the_pinned_bytes(config, seed):
+    cfg = load_json(HERE / "configs" / f"{config}.json")
+    train = SimpleNamespace(config=cfg, traffic={**TRAIN, **SMALL["train_epochs"]})
+    score = SimpleNamespace(config=cfg, traffic={**TEST, **SMALL["score_requests"]})
+    epochs, check, utts = train_epochs.data(train, seed)
+    got = (digest(b for epoch in epochs for b in epoch), digest(check),
+           digest(score_requests.data(score, seed)))
+    assert utts == SMALL["train_epochs"]["utterances"]
+    assert got == PINNED[seed]
+
+
+def test_visual_features_from_the_configuration():
+    # a configuration with visual_width draws one more N(0, 1) vector an
+    # utterance, after the others: the rest of the batch is as without it
+    plain = load_json(HERE / "configs" / "MARN1_onlysp.iemocap.json")
+    lengths = generate.split_lengths({**TEST, **SMALL["score_requests"]})
+    (a,) = generate.requests(lengths, plain, 1, np.random.default_rng([BIG, 1]))
+    (b,) = generate.requests(lengths, {**plain, "visual_width": 512}, 1,
+                             np.random.default_rng([BIG, 1]))
+    assert "visuf" not in a and list(b) == ["r1", "r2", "r3", "r4", "acouf", "visuf", "qmask",
+                                            "umask", "label"]
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    L, B = generate.shape_of(b)
+    assert b["visuf"].shape == (L, B, 512) and b["visuf"].dtype == np.float32
+    valid = b["umask"].T > 0
+    assert not b["visuf"][~valid].any() and (b["visuf"][valid] != 0).all()
+    rows = b["visuf"][valid]
+    assert len(np.unique(rows, axis=0)) == len(rows) and abs(rows.std() - 1) < 0.05

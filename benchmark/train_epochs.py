@@ -113,15 +113,13 @@ def reference_steps(torch, cell, weights, batches, device):
     """The reference's check steps in float64 from ``weights``: ``(losses,
     first gradient norms as Adam gets them, raw gradient norms a step,
     change norms after the steps)``."""
-    cfg, tr = cell.config, cell.traffic
+    tr = cell.traffic
     params = {n: w.detach().to(device, torch.float64) for n, w in weights.items()}
     start = {n: p.clone() for n, p in params.items()}
     state, losses, raw_norms, first = {}, [], [], None
     for batch in batches:
         b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        x = torch.cat([common.text_mean({k: b[k].double() for k in b if k.startswith("r")},
-                                        views=cfg["text_views"]),
-                       b["acouf"].double()], -1)
+        x = common.reference_input(cell, b)
         live = {n: p.detach().requires_grad_() for n, p in params.items()}
         logp = cell.reference.forward(live, x, b["qmask"].double(), b["umask"].double())
         loss = common.masked_loss(logp, b["label"], b["umask"].double())
@@ -185,6 +183,7 @@ def run(cell, seed: int, seconds: float, trace: bool, ctx) -> Outcome:
             trainer.train_network(1 + epoch + k, b) for k, b in enumerate(traced)])
         readings.slice_shapes = [generate.shape_of(b) for bs in traced for b in bs]
     window_peak = ctx.memory_peak()
+    readings.reserved_peak_bytes = ctx.reserved_peak()
 
     losses, first, change = check_steps(trainer, weights, optimizer_start, check)
     del trainer
