@@ -46,6 +46,7 @@ from torch import nn
 from ser_tpu_torch.ops.cells import RNNCellWeights, gru_step
 from ser_tpu_torch.ops.layers import Dropout, TorchLinear, dropout, train_generator
 from ser_tpu_torch.ops.masking import reverse_seq, select_parties
+from ser_tpu_torch.utils import profiling
 
 
 class MatchingAttention(nn.Module):
@@ -188,19 +189,20 @@ def drnn_step(consts, carry, xs, drop):
 def recurrence(consts, seqs, drop):
     """``drnn_step`` over all T steps from a zero carry: a Python loop over
     n stacked directions (1 or 2), seqs ``[T, n, B, ...]``, consts ``[n,
-    ...]``. Returns the emotions ``[T, n, B, D_e]`` and the context
-    attentions ``[T, n, B, T]`` (step t's over steps 0..t-1, zeros
-    after)."""
+    ...]``, inside the span ``ser#recurrence``. Returns the emotions ``[T,
+    n, B, D_e]`` and the context attentions ``[T, n, B, T]`` (step t's over
+    steps 0..t-1, zeros after)."""
     T, n, B, P = seqs[0].shape
     D_g, D_p, D_e = consts[1].shape[-2], consts[4].shape[-2], consts[8].shape[-2]
     new = seqs[1].new_zeros
     carry = (new(n, B, P, D_p), new(n, B, D_e), new(n, B, D_g), [])
     es, alphas = [], []
-    for t in range(T):
-        carry, (e, alpha) = drnn_step(consts, carry, [None if s is None else s[t] for s in seqs],
-                                      drop)
-        es.append(e)
-        alphas.append(F.pad(alpha, (0, T - t)))
+    with profiling.annotate("ser#recurrence"):
+        for t in range(T):
+            carry, (e, alpha) = drnn_step(consts, carry,
+                                          [None if s is None else s[t] for s in seqs], drop)
+            es.append(e)
+            alphas.append(F.pad(alpha, (0, T - t)))
     return torch.stack(es), torch.stack(alphas)
 
 

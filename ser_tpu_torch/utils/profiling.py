@@ -30,7 +30,7 @@ SPANS = (
     "ser#request",      # Predictor.predict and predict_batch
     "ser#inputs",       # Predictor.batch_inputs: the text mean, the copies
     "ser#forward",      # the model's call in a train step or a request
-    "ser#recurrence",   # the bidirectional loop, or onlysp's eval kernel
+    "ser#recurrence",   # the bidirectional loop (MARN1, DialogueRNN), or onlysp's eval kernel
     "ser#backward",     # autograd's backward of a train step
     "ser#graph.capture",  # the capture of a train step's CUDA graph
     "ser#graph.replay",   # the replay of a train step's CUDA graph
